@@ -1,0 +1,79 @@
+"""Accuracy module classes.
+
+Counterpart of ``torchmetrics_tpu/classification/accuracy.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.functional.classification._stat_reduce import _accuracy_reduce
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
+from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class BinaryAccuracy(BinaryStatScores):
+    """Binary accuracy: fraction of correct predictions."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+
+    def compute(self) -> Tensor:
+        """Accuracy from tp/fp/tn/fn counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _accuracy_reduce(tp, fp, tn, fn, average="binary", multidim_average=self.multidim_average)
+
+
+class MulticlassAccuracy(MulticlassStatScores):
+    """Multiclass accuracy with micro/macro/weighted/none averaging."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+
+    def compute(self) -> Tensor:
+        """Accuracy from per-class counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _accuracy_reduce(
+            tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average, top_k=self.top_k
+        )
+
+
+class Accuracy(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper: ``Accuracy(task="multiclass", num_classes=3)``."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryAccuracy(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+            return MulticlassAccuracy(num_classes, top_k, average, **kwargs)
+        raise _multilabel_not_ported(cls.__name__)

@@ -1,0 +1,127 @@
+"""Confusion matrix module classes.
+
+Counterpart of ``torchmetrics_tpu/classification/confusion_matrix.py``: the state is
+the running int32 confusion matrix itself (``dist_reduce_fx="sum"``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.core.metric import Metric
+from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
+    _binary_confusion_matrix_arg_validation,
+    _binary_confusion_matrix_compute,
+    _binary_confusion_matrix_format,
+    _binary_confusion_matrix_tensor_validation,
+    _binary_confusion_matrix_update,
+    _multiclass_confusion_matrix_arg_validation,
+    _multiclass_confusion_matrix_compute,
+    _multiclass_confusion_matrix_format,
+    _multiclass_confusion_matrix_tensor_validation,
+    _multiclass_confusion_matrix_update,
+)
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
+from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class BinaryConfusionMatrix(Metric):
+    """Binary [2, 2] confusion matrix."""
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        ignore_index: Optional[int] = None,
+        normalize: Optional[str] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _binary_confusion_matrix_arg_validation(threshold, ignore_index, normalize)
+        self.threshold = threshold
+        self.ignore_index = ignore_index
+        self.normalize = normalize
+        self.validate_args = validate_args
+        self.add_state("confmat", torch.zeros((2, 2), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate the batch confusion matrix."""
+        if self.validate_args:
+            _binary_confusion_matrix_tensor_validation(preds, target, self.ignore_index)
+        preds, target, valid = _binary_confusion_matrix_format(preds, target, self.threshold, self.ignore_index)
+        self.confmat = self.confmat + _binary_confusion_matrix_update(preds, target, valid)
+
+    def compute(self) -> Tensor:
+        """The (optionally normalized) confusion matrix."""
+        return _binary_confusion_matrix_compute(self.confmat, self.normalize)
+
+
+class MulticlassConfusionMatrix(Metric):
+    """Multiclass [C, C] confusion matrix (rows = target, cols = prediction)."""
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_classes: int,
+        ignore_index: Optional[int] = None,
+        normalize: Optional[str] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multiclass_confusion_matrix_arg_validation(num_classes, ignore_index, normalize)
+        self.num_classes = num_classes
+        self.ignore_index = ignore_index
+        self.normalize = normalize
+        self.validate_args = validate_args
+        self.add_state("confmat", torch.zeros((num_classes, num_classes), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate the batch confusion matrix."""
+        if self.validate_args:
+            _multiclass_confusion_matrix_tensor_validation(preds, target, self.num_classes, self.ignore_index)
+        preds, target, valid = _multiclass_confusion_matrix_format(preds, target, self.ignore_index)
+        self.confmat = self.confmat + _multiclass_confusion_matrix_update(preds, target, valid, self.num_classes)
+
+    def compute(self) -> Tensor:
+        """The (optionally normalized) confusion matrix."""
+        return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+
+
+class ConfusionMatrix(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper for the confusion matrix."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        normalize: Optional[str] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({"normalize": normalize, "ignore_index": ignore_index, "validate_args": validate_args})
+        if task == ClassificationTask.BINARY:
+            return BinaryConfusionMatrix(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            return MulticlassConfusionMatrix(num_classes, **kwargs)
+        raise _multilabel_not_ported(cls.__name__)

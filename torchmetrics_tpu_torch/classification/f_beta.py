@@ -1,0 +1,222 @@
+"""F-beta / F1 module classes.
+
+Counterpart of ``torchmetrics_tpu/classification/f_beta.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.functional.classification._stat_reduce import _fbeta_reduce
+from torchmetrics_tpu_torch.functional.classification.f_beta import _fbeta_arg_check
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
+from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class BinaryFBetaScore(BinaryStatScores):
+    """Binary F-beta."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        beta: float,
+        threshold: float = 0.5,
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            threshold=threshold,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=False,
+            **kwargs,
+        )
+        if validate_args:
+            _fbeta_arg_check(beta)
+        self.validate_args = validate_args
+        self.beta = beta
+        self.zero_division = zero_division
+
+    def compute(self) -> Tensor:
+        """F-beta from counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _fbeta_reduce(
+            tp, fp, tn, fn, self.beta, average="binary", multidim_average=self.multidim_average,
+            zero_division=self.zero_division,
+        )
+
+
+class MulticlassFBetaScore(MulticlassStatScores):
+    """Multiclass F-beta."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        beta: float,
+        num_classes: int,
+        top_k: int = 1,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_classes=num_classes,
+            top_k=top_k,
+            average=average,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=False,
+            **kwargs,
+        )
+        if validate_args:
+            _fbeta_arg_check(beta)
+        self.validate_args = validate_args
+        self.beta = beta
+        self.zero_division = zero_division
+
+    def compute(self) -> Tensor:
+        """F-beta from per-class counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _fbeta_reduce(
+            tp, fp, tn, fn, self.beta, average=self.average, multidim_average=self.multidim_average,
+            zero_division=self.zero_division,
+        )
+
+
+class BinaryF1Score(BinaryFBetaScore):
+    """Binary F1."""
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            beta=1.0,
+            threshold=threshold,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=validate_args,
+            zero_division=zero_division,
+            **kwargs,
+        )
+
+
+class MulticlassF1Score(MulticlassFBetaScore):
+    """Multiclass F1."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        top_k: int = 1,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            beta=1.0,
+            num_classes=num_classes,
+            top_k=top_k,
+            average=average,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=validate_args,
+            zero_division=zero_division,
+            **kwargs,
+        )
+
+
+class FBetaScore(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper for F-beta."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        beta: float = 1.0,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+            "zero_division": zero_division,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryFBetaScore(beta, threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+            return MulticlassFBetaScore(beta, num_classes, top_k, average, **kwargs)
+        raise _multilabel_not_ported(cls.__name__)
+
+
+class F1Score(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper for F1."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+            "zero_division": zero_division,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryF1Score(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+            return MulticlassF1Score(num_classes, top_k, average, **kwargs)
+        raise _multilabel_not_ported(cls.__name__)

@@ -1,0 +1,184 @@
+"""Stateful stat-scores bases and the ``StatScores`` family.
+
+Counterpart of ``torchmetrics_tpu/classification/stat_scores.py``. Every counting
+metric (Accuracy, FBeta, ...) subclasses one of the task bases here and overrides
+only ``compute``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.core.metric import Metric
+from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _binary_stat_scores_arg_validation,
+    _binary_stat_scores_compute,
+    _binary_stat_scores_format,
+    _binary_stat_scores_tensor_validation,
+    _binary_stat_scores_update,
+    _multiclass_stat_scores_arg_validation,
+    _multiclass_stat_scores_compute,
+    _multiclass_stat_scores_format,
+    _multiclass_stat_scores_tensor_validation,
+    _multiclass_stat_scores_update,
+    _multilabel_not_ported,
+)
+from torchmetrics_tpu_torch.utils.data import dim_zero_cat
+from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class _AbstractStatScores(Metric):
+    """Holds tp/fp/tn/fn states and the shared accumulate logic."""
+
+    def _create_state(self, size: int = 1, multidim_average: str = "global") -> None:
+        """Register int32 zero states (global) or ragged lists (samplewise)."""
+        if multidim_average == "global":
+            zeros = torch.zeros(size, dtype=torch.int32) if size > 1 else torch.zeros((), dtype=torch.int32)
+            for name in ("tp", "fp", "tn", "fn"):
+                self.add_state(name, zeros, dist_reduce_fx="sum")
+        else:
+            for name in ("tp", "fp", "tn", "fn"):
+                self.add_state(name, [], dist_reduce_fx="cat")
+
+    def _update_state(self, tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> None:
+        """Accumulate (global: add; samplewise: append)."""
+        if isinstance(self.tp, list):
+            self.tp.append(tp)
+            self.fp.append(fp)
+            self.tn.append(tn)
+            self.fn.append(fn)
+        else:
+            self.tp = self.tp + tp
+            self.fp = self.fp + fp
+            self.tn = self.tn + tn
+            self.fn = self.fn + fn
+
+    def _final_state(self):
+        """Concatenated final counts."""
+        return dim_zero_cat(self.tp), dim_zero_cat(self.fp), dim_zero_cat(self.tn), dim_zero_cat(self.fn)
+
+
+class BinaryStatScores(_AbstractStatScores):
+    """True/false positives/negatives for binary tasks."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        threshold: float = 0.5,
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
+        self.threshold = threshold
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state(size=1, multidim_average=multidim_average)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update tp/fp/tn/fn with a batch."""
+        if self.validate_args:
+            _binary_stat_scores_tensor_validation(preds, target, self.multidim_average, self.ignore_index)
+        preds, target, valid = _binary_stat_scores_format(preds, target, self.threshold, self.ignore_index)
+        tp, fp, tn, fn = _binary_stat_scores_update(preds, target, valid, self.multidim_average)
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        """Return [tp, fp, tn, fn, support]."""
+        tp, fp, tn, fn = self._final_state()
+        return _binary_stat_scores_compute(tp, fp, tn, fn, self.multidim_average)
+
+
+class MulticlassStatScores(_AbstractStatScores):
+    """Per-class true/false positives/negatives for multiclass tasks."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_classes: int,
+        top_k: int = 1,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)
+        self.num_classes = num_classes
+        self.top_k = top_k
+        self.average = average
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        # micro + top_k=1 keeps scalar states: its update never builds per-class counts
+        self._create_state(
+            size=1 if (average == "micro" and top_k == 1) else num_classes,
+            multidim_average=multidim_average,
+        )
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update tp/fp/tn/fn with a batch."""
+        if self.validate_args:
+            _multiclass_stat_scores_tensor_validation(
+                preds, target, self.num_classes, self.multidim_average, self.ignore_index
+            )
+        preds, target = _multiclass_stat_scores_format(preds, target, self.top_k)
+        tp, fp, tn, fn = _multiclass_stat_scores_update(
+            preds, target, self.num_classes, self.top_k, self.average, self.multidim_average, self.ignore_index
+        )
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        """Return [..., 5] stat scores (per class unless ``average='micro'``)."""
+        tp, fp, tn, fn = self._final_state()
+        return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+
+class StatScores(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper: ``StatScores(task="binary") == BinaryStatScores()``."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryStatScores(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+            return MulticlassStatScores(num_classes, top_k, average, **kwargs)
+        raise _multilabel_not_ported(cls.__name__)
