@@ -7,22 +7,31 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
 
 1. ``device``: the card's name and power limit (``nvidia-smi``) and the CUDA version.
 2. ``build``: compile the CUDA kernels from ``torchmetrics_tpu_torch/ops/csrc/``.
-3. ``kernels``: each kernel against its plain PyTorch version on a CPU copy (the counts
-   must be equal), at stress shapes and at the shapes the eval loops give it, with
-   its time, its bound, the plain version's time, where one PyTorch call computes
-   the same function that call's time, and the launches the check and timing made.
+3. ``kernels``: each kernel against its plain PyTorch version on a CPU copy, at stress
+   shapes and at the shapes the main path gives it, with its time, its bound, the
+   plain version's time, where one PyTorch call computes the same function that
+   call's time, and the launches the check and timing made. Counts must be equal;
+   the weighted bincount's float rows must agree within WEIGHTED_RTOL.
 4. ``imagenet_eval``: an ImageNet-1k validation pass, 50,000 samples, 1000 classes,
-   batch 500: top-1 and macro accuracy, macro F1, the confusion matrix, AUROC
-   (100 thresholds) and the micro-averaged PR curve (200 thresholds).
+   batch 500: top-1 and macro accuracy, macro F1, macro precision and recall, the
+   confusion matrix, macro Jaccard, Matthews, Cohen's kappa, calibration error
+   (15 bins), AUROC (100 thresholds) and the micro-averaged PR curve (200 thresholds).
 5. ``binary_eval``: a CTR-style pass, 2^22 scores in 16 batches with 1% of targets
-   ignored: AUROC (1000 thresholds), accuracy, F1 and the confusion matrix.
+   ignored: AUROC and average precision (1000 thresholds), accuracy, F1, the
+   confusion matrix, Matthews, Jaccard and calibration error (15 bins).
+6. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+   reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
+   candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
-integer states and floats within 1e-5, and require every kernel to have launched.
-Each then profiles a few warm steps on fresh metrics (``torch.profiler``): the
-device time per step, the device's busy share of the wall clock and the kernels
-that take most of it.
-The last three lines are the ``nvidia-smi`` line, a JSON line with every kernel, and
+integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
+reach 10^3 where a float32 ulp is 10^-4, within 1e-5 plus a relative 1e-6. Each
+phase requires its kernels to have launched. Each eval phase then profiles a few
+warm steps on fresh metrics (``torch.profiler``): the device time per step, the
+device's busy share of the wall clock and the kernels that take most of it. The
+retrieval phase requires the CPU's counts to be equal.
+Every phase line carries its wall time; the last four lines are the script's total
+wall time, the ``nvidia-smi`` line, a JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Times come from CUDA events over many launches
 (inputs warm in L2) or from the host clock around work that ends in a synchronise.
 Without a card the script exits non-zero before printing any result.
@@ -45,12 +54,23 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (an FMA counts two)
 FLOAT_ATOL = 1e-5
+# the calibration state: float32 per-bin sums of up to ~10^3, each step summed in
+# float64 and rounded once on the card and on the CPU alike
+BINS_RTOL = 1e-6
+# the weighted bincount's float rows against its plain version: both sum in float64 and
+# round once, so they differ by at most about one float32 ulp whatever the atomics' order
+WEIGHTED_RTOL = 1e-6
 KERNEL_SOURCES = {
     "confusion_matrix": ("torchmetrics_tpu_torch/ops/csrc/confusion_matrix.cu", "torchmetrics_tpu/ops/pallas_kernels.py:70"),
     "binned_curve_counts": (
         "torchmetrics_tpu_torch/ops/csrc/binned_curve_counts.cu",
         "torchmetrics_tpu/ops/pallas_kernels.py:140",
     ),
+    "weighted_bincount": (
+        "torchmetrics_tpu_torch/ops/csrc/weighted_bincount.cu",
+        "torchmetrics_tpu/ops/pallas_kernels.py:205",
+    ),
+    "bincount": ("torchmetrics_tpu_torch/ops/csrc/bincount.cu", "torchmetrics_tpu/ops/pallas_kernels.py:267"),
 }
 
 
@@ -168,6 +188,95 @@ def kernel_record_curve(n: int, t: int, seed: int, main_path: bool, unsorted_tie
     return {**record, "launches": kernels.LAUNCHES["binned_curve_counts"] - before}
 
 
+def weighted_case(n: int, k: int, c: int, seed: int, device: str = "cuda"):
+    """Indices with about 1% outside [0, C); K weight rows, the last a 0/1 count row and
+    the others floats in [0, 1), each with 20% zeros (calibration's rows are
+    confidence * valid, accuracy * valid and valid)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, c, (n,), generator=g, device=device, dtype=torch.int32)
+    bad = torch.rand(n, generator=g, device=device) < 0.01
+    x = torch.where(bad, torch.where(x % 2 == 0, c + 7, -1), x).to(torch.int32)
+    keep = (torch.rand((k, n), generator=g, device=device) >= 0.2).to(torch.float32)
+    w = torch.rand((k, n), generator=g, device=device) * keep
+    w[-1] = keep[-1]
+    return x, w
+
+
+def kernel_record_weighted_bincount(n: int, k: int, c: int, seed: int, main_path: bool) -> dict:
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    x, w = weighted_case(n, k, c, seed)
+    before = kernels.LAUNCHES["weighted_bincount"]
+    got = kernels.weighted_bincount(x, w, c)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    want = kernels.weighted_bincount_plain(x.cpu(), w.cpu(), c)
+    err = float((got.to(torch.float64) - want.to(torch.float64)).abs().max())
+    if not torch.equal(got[-1], want[-1]):
+        raise AssertionError(f"weighted_bincount count row != plain at N={n}, K={k}, C={c}")
+    torch.testing.assert_close(got, want, rtol=WEIGHTED_RTOL, atol=0)
+    # the yardstick: one index_add_ over the same function's in-range samples (an index
+    # outside [0, C) would fail it on the card)
+    in_range = (x >= 0) & (x < c)
+    x_lib = torch.where(in_range, x, torch.zeros_like(x))
+    w_lib = w * in_range
+    library = torch.zeros((k, c), device=w.device).index_add_(1, x_lib, w_lib)
+    torch.testing.assert_close(library.cpu(), want, rtol=1e-3, atol=1e-2)  # float32 atomics, in any order
+    record = {
+        "kernel": "weighted_bincount", "n": n, "rows": k, "bins": c, "main_path": main_path, "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: kernels.weighted_bincount(x, w, c)),
+        "plain_ms": time_ms(lambda: kernels.weighted_bincount_plain(x, w, c)),
+        "library_ms": time_ms(lambda: torch.zeros((k, c), device=w.device).index_add_(1, x_lib, w_lib)),
+        "bound_ms": (n * (4 + 4 * k) + k * c * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+    return {**record, "launches": kernels.LAUNCHES["weighted_bincount"] - before}
+
+
+def query_ids(queries: int = 6980, candidates: int = 1000, seed: int = 9, device: str = "cuda"):
+    """int32 query ids of a top-``candidates`` reranking run, ``candidates`` per query,
+    in a seeded order."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.arange(queries, device=device, dtype=torch.int32).repeat_interleave(candidates)
+    return ids[torch.randperm(ids.numel(), generator=g, device=device)]
+
+
+def kernel_record_bincount(n: int, c: int, seed: int, main_path: bool) -> dict:
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    if main_path:
+        x = query_ids(c, n // c, seed)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randint(0, c, (n,), generator=g, device="cuda", dtype=torch.int32)
+    before = kernels.LAUNCHES["bincount"]
+    got = kernels.bincount(x, None, c)
+    torch.cuda.synchronize()
+    want = kernels.bincount_plain(x.cpu(), c)
+    err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"bincount kernel != plain at N={n}, C={c}: max abs err {err}")
+    if not torch.equal(torch.bincount(x, minlength=c).cpu().to(torch.int32), want):
+        raise AssertionError("the torch.bincount yardstick disagrees with the plain version")
+    record = {
+        "kernel": "bincount", "n": n, "bins": c, "main_path": main_path, "max_abs_err": err,
+        "kernel_ms": time_ms(lambda: kernels.bincount(x, None, c)),
+        "plain_ms": time_ms(lambda: kernels.bincount_plain(x, c)),
+        "library_ms": time_ms(lambda: torch.bincount(x, minlength=c)),
+        "bound_ms": (n * 4 + c * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+    return {**record, "launches": kernels.LAUNCHES["bincount"] - before}
+
+
 # -------------------------------------------------------------------------- evals
 
 
@@ -180,7 +289,13 @@ def imagenet_metrics(device: str) -> dict:
         "accuracy_top1": tc.MulticlassAccuracy(c, average="micro", **kw),
         "accuracy_macro": tc.MulticlassAccuracy(c, average="macro", **kw),
         "f1_macro": tc.MulticlassF1Score(c, average="macro", **kw),
+        "precision_macro": tc.MulticlassPrecision(c, average="macro", **kw),
+        "recall_macro": tc.MulticlassRecall(c, average="macro", **kw),
         "confusion_matrix": tc.MulticlassConfusionMatrix(c, **kw),
+        "jaccard_macro": tc.MulticlassJaccardIndex(c, average="macro", **kw),
+        "matthews": tc.MulticlassMatthewsCorrCoef(c, **kw),
+        "cohen_kappa": tc.MulticlassCohenKappa(c, **kw),
+        "calibration_error_b15": tc.MulticlassCalibrationError(c, n_bins=15, **kw),
         "auroc_t100": tc.MulticlassAUROC(c, thresholds=100, **kw),
         "pr_curve_micro_t200": tc.MulticlassPrecisionRecallCurve(c, average="micro", thresholds=200, **kw),
     }
@@ -210,6 +325,10 @@ def binary_metrics(device: str) -> dict:
         "accuracy": tc.BinaryAccuracy(**kw),
         "f1": tc.BinaryF1Score(**kw),
         "confusion_matrix": tc.BinaryConfusionMatrix(**kw),
+        "average_precision_t1000": tc.BinaryAveragePrecision(thresholds=1000, **kw),
+        "matthews": tc.BinaryMatthewsCorrCoef(**kw),
+        "jaccard": tc.BinaryJaccardIndex(**kw),
+        "calibration_error_b15": tc.BinaryCalibrationError(n_bins=15, **kw),
     }
 
 
@@ -245,7 +364,8 @@ def run_loop(metrics: dict, preds, target, batch: int):
 
 
 def compare(card, cpu, where: str) -> float:
-    """Integers (and thresholds) equal, floats within FLOAT_ATOL; returns the largest float gap."""
+    """Integers (and thresholds) equal, floats within FLOAT_ATOL (plus BINS_RTOL of the CPU's
+    value for a calibration ``bins`` state); returns the largest float gap."""
     import torch
 
     if isinstance(card, dict):
@@ -259,10 +379,15 @@ def compare(card, cpu, where: str) -> float:
         if not torch.equal(a, b):
             raise AssertionError(f"{where}: integer state differs between the card and the CPU")
         return 0.0
-    gap = float((a - b).abs().max()) if a.numel() else 0.0
-    if not gap <= FLOAT_ATOL:
-        raise AssertionError(f"{where}: float gap {gap} > {FLOAT_ATOL}")
-    return gap
+    if not a.numel():
+        return 0.0
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    diff = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
+    rtol = BINS_RTOL if where.endswith(".bins") else 0.0
+    excess = diff - (FLOAT_ATOL + rtol * b.abs())
+    if not bool((excess <= 0).all()):
+        raise AssertionError(f"{where}: float gap {float(diff.max())} over {FLOAT_ATOL} + {rtol} * |cpu|")
+    return float(diff.max())
 
 
 def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile_steps: int) -> dict:
@@ -280,7 +405,11 @@ def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile
             raise AssertionError(f"{name}: kernel {kernel} was never launched on the main path")
 
     cpu_values, cpu_states, cpu_seconds = run_loop(metrics_fn("cpu"), preds.cpu(), target.cpu(), batch)
-    gap = max(compare(card_states, cpu_states, "state"), compare(card_values, cpu_values, "value"))
+    gaps = {
+        metric: {"state": compare(card_states[metric], cpu_states[metric], f"state.{metric}"),
+                 "value": compare(card_values[metric], cpu_values[metric], f"value.{metric}")}
+        for metric in card_states
+    }
     summary = {}
     for metric, value in card_values.items():
         if isinstance(value, tuple):  # a curve: report its size
@@ -292,8 +421,45 @@ def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile
     return {
         "phase": name, "samples": int(preds.shape[0]), "batch": batch, "steps": steps,
         "wall_s": seconds, "us_per_step": seconds / steps * 1e6, "launches": launches,
-        "cpu_compared_steps": steps, "cpu_wall_s": cpu_seconds, "max_float_gap": gap, "values": summary,
+        "cpu_compared_steps": steps, "cpu_wall_s": cpu_seconds, "max_float_gap": max(max(g.values()) for g in gaps.values()),
+        "float_gaps": {metric: g for metric, g in gaps.items() if any(g.values())}, "values": summary,
         "profile": profile_loop(metrics_fn("cuda"), preds, target, batch, profile_steps),
+    }
+
+
+def retrieval_phase() -> dict:
+    """Group the query ids of a reranking run with ``_flexible_bincount`` on the card and on the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+    from torchmetrics_tpu_torch.utils.data import _flexible_bincount
+
+    ids = query_ids()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = _flexible_bincount(ids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches["bincount"] <= 0:
+        raise AssertionError("retrieval_grouping: kernel bincount was never launched on the main path")
+    t0 = time.perf_counter()
+    cpu_counts = _flexible_bincount(ids.cpu())
+    cpu_seconds = time.perf_counter() - t0
+    if not torch.equal(counts.cpu(), cpu_counts):
+        raise AssertionError("retrieval_grouping: the card's counts differ from the CPU's")
+    if counts.numel() != 6980 or not bool((counts == 1000).all()):
+        raise AssertionError("retrieval_grouping: expected 6,980 groups of 1000 candidates")
+    warm = []
+    for _ in range(5):  # the same call again, with the card's allocator and sort warm
+        t0 = time.perf_counter()
+        _flexible_bincount(ids)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    return {
+        "phase": "retrieval_grouping", "ids": int(ids.numel()), "groups": int(counts.numel()),
+        "wall_s": seconds, "warm_wall_s_min": min(warm), "cpu_wall_s": cpu_seconds, "launches": launches,
     }
 
 
@@ -348,6 +514,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "cuda": torch.version.cuda, "torch": torch.__version__})
 
+    script_t0 = time.perf_counter()
     t0 = time.perf_counter()
     _build.build_all()
     for name in _build.SOURCES:
@@ -356,6 +523,7 @@ def main() -> int:
         name: {"seconds": rec["seconds"], "ptxas": [line.strip() for line in rec["log"].splitlines() if "Used" in line]}
         for name, rec in _build.BUILD_LOG.items()
     }})
+    t0 = time.perf_counter()
     records = [kernel_record_confusion_matrix(1 << 20, c, seed=c, main_path=False) for c in (10, 100, 1000)]
     records.append(kernel_record_confusion_matrix(500, 1000, seed=7, main_path=True))
     records.append(kernel_record_confusion_matrix(1 << 18, 2, seed=8, main_path=True))
@@ -363,27 +531,42 @@ def main() -> int:
     records.append(kernel_record_curve(1 << 20, 200, seed=3, main_path=False, unsorted_ties=True))
     records.append(kernel_record_curve(500 * 1000, 200, seed=4, main_path=True))
     records.append(kernel_record_curve(1 << 18, 1000, seed=5, main_path=True))
-    emit({"phase": "kernels", "card": smi, "l2": "warm", "records": records})
+    records.append(kernel_record_weighted_bincount(500, 3, 15, seed=11, main_path=True))
+    records.append(kernel_record_weighted_bincount(1 << 18, 3, 15, seed=12, main_path=True))
+    records += [kernel_record_weighted_bincount(1 << 20, k, c, seed=13 + k + c, main_path=False)
+                for c in (15, 1000, 8192) for k in (1, 3)]
+    records.append(kernel_record_bincount(6980 * 1000, 6980, seed=9, main_path=True))
+    records += [kernel_record_bincount(1 << 20, c, seed=c, main_path=False) for c in (100, 8192, 1 << 16)]
+    emit({"phase": "kernels", "card": smi, "l2": "warm", "wall_s": time.perf_counter() - t0, "records": records})
 
-    imagenet = eval_phase("imagenet_eval", imagenet_metrics, imagenet_data(), batch=500,
-                          required=("confusion_matrix", "binned_curve_counts"), profile_steps=10)
-    emit({**imagenet, "card": smi})
-    binary = eval_phase("binary_eval", binary_metrics, binary_data(), batch=1 << 18,
-                        required=("confusion_matrix", "binned_curve_counts"), profile_steps=4)
-    emit({**binary, "card": smi})
+    phases = []
+    for name, metrics_fn, data_fn, batch, profile_steps in (
+        ("imagenet_eval", imagenet_metrics, imagenet_data, 500, 10),
+        ("binary_eval", binary_metrics, binary_data, 1 << 18, 4),
+    ):
+        t0 = time.perf_counter()
+        phase = eval_phase(name, metrics_fn, data_fn(), batch=batch, profile_steps=profile_steps,
+                           required=("confusion_matrix", "binned_curve_counts", "weighted_bincount"))
+        phases.append(phase)
+        emit({**phase, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    retrieval = retrieval_phase()
+    phases.append(retrieval)
+    emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
         mine = [r for r in records if r["kernel"] == name]
-        main = next(r for r in mine if r["main_path"])  # the ImageNet loop's shape comes first
+        main = next(r for r in mine if r["main_path"])  # the first main-path shape of each kernel
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": imagenet["launches"][name] + binary["launches"][name],
+            "launches": sum(phase["launches"][name] for phase in phases),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": {k: main[k] for k in ("n", "classes", "thresholds") if k in main},
+            "shape": {k: main[k] for k in ("n", "classes", "thresholds", "rows", "bins") if k in main},
         })
+    emit({"total_wall_s": time.perf_counter() - script_t0})
     print(smi)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

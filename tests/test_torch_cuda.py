@@ -89,9 +89,64 @@ def test_launches_are_counted_only_for_the_kernels(card):
     arrays = _curve(100, 5, seed=0)
     kernels.binned_curve_counts(*(a.to(card) for a in arrays))
     kernels.binned_curve_counts(*(a[:0].to(card) if i < 3 else a.to(card) for i, a in enumerate(arrays)))
-    assert kernels.LAUNCHES == {"confusion_matrix": 1, "binned_curve_counts": 1}
+    x = preds.to(card)
+    kernels.weighted_bincount(x, torch.ones((3, 100), device=card), 4)
+    kernels.bincount(x, None, 4)
+    kernels.bincount(x, valid.to(card), 4)  # the masked form is the weighted kernel's K=1 case
+    kernels.bincount(x[:0], None, 4)  # empty: nothing to launch
+    assert kernels.LAUNCHES == {"confusion_matrix": 1, "binned_curve_counts": 1, "weighted_bincount": 2, "bincount": 1}
     with pytest.raises(ValueError, match="one device"):
         kernels.confusion_matrix(preds.to(card), target, valid, 4)
+
+
+def _weighted(n: int, k: int, c: int, seed: int, zero: float = 0.2, out_of_range: float = 0.01,
+              nonfinite: bool = False):
+    """CPU int32 indices with some outside [0, C), float32 [K, N] weights with some zeros."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(0, c, (n,), generator=g, dtype=torch.int32)
+    bad = torch.rand(n, generator=g) < out_of_range
+    x = torch.where(bad, torch.where(x % 2 == 0, c + 3, -2), x).to(torch.int32)
+    w = torch.rand((k, n), generator=g)
+    w = torch.where(torch.rand((k, n), generator=g) < zero, torch.zeros_like(w), w)
+    if nonfinite and n:
+        w[0, n // 2] = float("nan")
+        w[-1, n // 3] = float("inf")
+    return x, w
+
+
+# float rows: both sides sum in float64 and round once, so they agree to about one
+# float32 ulp whatever order the card's atomics take
+WEIGHTED_RTOL = 1e-6
+
+
+@pytest.mark.parametrize(
+    "n, k, c, kw",
+    [(0, 3, 15, {}), (500, 3, 15, {}), (1 << 18, 3, 15, {}), (1 << 16, 1, 15, {}), (1 << 16, 3, 200, {}),
+     (1 << 16, 3, 1000, {}), (1 << 16, 1, 8192, {}), (1 << 16, 3, 8192, {}), (5000, 3, 15, {"nonfinite": True}),
+     (5000, 3, 2000, {"nonfinite": True}), (3000, 3, 7, {"zero": 1.0}), (77, 3, 1, {})],
+)
+def test_weighted_bincount_kernel_matches_plain(card, n, k, c, kw):
+    x, w = _weighted(n, k, c, seed=n + k + c, **kw)
+    got = kernels.weighted_bincount(x.to(card), w.to(card), c)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32 and got.shape == (k, c)
+    torch.testing.assert_close(got.cpu(), kernels.weighted_bincount_plain(x, w, c), rtol=WEIGHTED_RTOL, atol=0,
+                               equal_nan=True)
+    counts = kernels.weighted_bincount(x.to(card), (w != 0).to(torch.float32).to(card), c)
+    assert torch.equal(counts.cpu(), kernels.weighted_bincount_plain(x, (w != 0).to(torch.float32), c))
+
+
+@pytest.mark.parametrize("n, c", [(0, 5), (1000, 1), (1 << 16, 100), (1 << 16, 6980), (1 << 16, 12288),
+                                  (1 << 16, 12289), (1 << 16, 1 << 16)])
+def test_bincount_kernel_matches_plain(card, n, c):
+    x, w = _weighted(n, 1, c, seed=n + c, out_of_range=0.05)
+    got = kernels.bincount(x.to(card), None, c)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), kernels.bincount_plain(x, c))
+    valid = w[0] > 0.5
+    masked = kernels.bincount(x.to(card), valid.to(card), c)
+    assert torch.equal(masked.cpu(), kernels.bincount(x, valid, c))
 
 
 METRICS = {
@@ -102,6 +157,13 @@ METRICS = {
     "auroc_binned": lambda **k: tc.MulticlassAUROC(7, thresholds=50, **k),
     "pr_curve_micro": lambda **k: tc.MulticlassPrecisionRecallCurve(7, average="micro", thresholds=[0.9, 0.1, 0.5], **k),
     "auroc_exact": lambda **k: tc.MulticlassAUROC(7, **k),
+    "calibration_l2": lambda **k: tc.MulticlassCalibrationError(7, n_bins=15, norm="l2", **k),
+    "precision_macro": lambda **k: tc.MulticlassPrecision(7, average="macro", **k),
+    "recall_weighted": lambda **k: tc.MulticlassRecall(7, average="weighted", **k),
+    "jaccard_macro": lambda **k: tc.MulticlassJaccardIndex(7, **k),
+    "mcc": lambda **k: tc.MulticlassMatthewsCorrCoef(7, **k),
+    "kappa_quadratic": lambda **k: tc.MulticlassCohenKappa(7, weights="quadratic", **k),
+    "average_precision_binned": lambda **k: tc.MulticlassAveragePrecision(7, thresholds=20, **k),
 }
 
 

@@ -126,7 +126,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.confusion_matrix(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(valid), 4)
     scores, labels, valid, thr = _curve_case(64, 5, seed=1)
     kernels.binned_curve_counts(*(torch.from_numpy(a) for a in (scores, labels, valid, thr)))
-    assert kernels.LAUNCHES == {"confusion_matrix": 0, "binned_curve_counts": 0}
+    x = torch.from_numpy(preds)
+    kernels.weighted_bincount(x, torch.ones((3, 64)), 4)
+    kernels.bincount(x, None, 4)
+    kernels.bincount(x, torch.from_numpy(valid), 4)
+    assert kernels.LAUNCHES == {"confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0}
 
 
 @pytest.mark.parametrize("which", ["confusion_matrix", "binned_curve_counts"])

@@ -6,6 +6,11 @@ same numpy batches in the JAX package and in the port. Then the carry-across: 2
 batches in JAX, ``state_dict`` → ``convert.jax_state`` → 2 more batches in the port
 equals 4 batches in JAX. Last, importing the port pulls in neither JAX nor the JAX
 package.
+
+Integer states are compared exactly and floats at ``ATOL``, except the calibration
+``bins`` state, at ``BINS_RTOL``: its confidence sums reach tens, where a float32
+ulp is about 2e-6, and JAX sums them in float32 while the port sums in float64 and
+rounds once.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torchmetrics_tpu_torch.convert import jax_state_to_torch, load_jax_state  #
 
 C, BATCH, STEPS = 10, 64, 4
 ATOL = 1e-6
+BINS_RTOL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (name, factory(module, **kwargs)) — the ImageNet-style multiclass set
@@ -40,6 +46,12 @@ MULTICLASS_SET = {
     "prc_micro_t200": lambda m, **k: m.MulticlassPrecisionRecallCurve(
         C, average="micro", thresholds=200, validate_args=False, **k
     ),
+    "precision_macro": lambda m, **k: m.MulticlassPrecision(C, average="macro", validate_args=False, **k),
+    "recall_macro": lambda m, **k: m.MulticlassRecall(C, average="macro", validate_args=False, **k),
+    "jaccard_macro": lambda m, **k: m.MulticlassJaccardIndex(C, average="macro", validate_args=False, **k),
+    "matthews": lambda m, **k: m.MulticlassMatthewsCorrCoef(C, validate_args=False, **k),
+    "cohen_kappa": lambda m, **k: m.MulticlassCohenKappa(C, validate_args=False, **k),
+    "calibration_b15": lambda m, **k: m.MulticlassCalibrationError(C, n_bins=15, validate_args=False, **k),
 }
 
 # the CTR-style binary set, with ignored targets
@@ -48,6 +60,12 @@ BINARY_SET = {
     "accuracy": lambda m, **k: m.BinaryAccuracy(ignore_index=-1, validate_args=False, **k),
     "f1": lambda m, **k: m.BinaryF1Score(ignore_index=-1, validate_args=False, **k),
     "confmat": lambda m, **k: m.BinaryConfusionMatrix(ignore_index=-1, validate_args=False, **k),
+    "average_precision_t1000": lambda m, **k: m.BinaryAveragePrecision(
+        thresholds=1000, ignore_index=-1, validate_args=False, **k
+    ),
+    "matthews": lambda m, **k: m.BinaryMatthewsCorrCoef(ignore_index=-1, validate_args=False, **k),
+    "jaccard": lambda m, **k: m.BinaryJaccardIndex(ignore_index=-1, validate_args=False, **k),
+    "calibration_b15": lambda m, **k: m.BinaryCalibrationError(n_bins=15, ignore_index=-1, validate_args=False, **k),
 }
 
 
@@ -73,10 +91,10 @@ def _binary_batches(seed: int = 1):
     return out
 
 
-def _assert_match(jax_out, torch_out) -> None:
+def _assert_match(jax_out, torch_out, rtol: float = 0.0) -> None:
     if isinstance(jax_out, (tuple, list)):
         for a, b in zip(jax_out, torch_out, strict=True):
-            _assert_match(a, b)
+            _assert_match(a, b, rtol)
         return
     want = np.asarray(jax_out)
     got = torch_out.detach().cpu().numpy()
@@ -85,7 +103,7 @@ def _assert_match(jax_out, torch_out) -> None:
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
     else:
-        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=rtol)
 
 
 def _states_match(jm, tm) -> None:
@@ -93,7 +111,7 @@ def _states_match(jm, tm) -> None:
     tsd = tm.state_dict(persistent_only=False)
     assert set(jsd) == set(tsd)
     for key in jsd:
-        _assert_match(jsd[key], tsd[key])
+        _assert_match(jsd[key], tsd[key], BINS_RTOL if key == "bins" else 0.0)
 
 
 def _sets():
@@ -131,6 +149,22 @@ def test_state_carried_across_from_jax(case):
         port.update(torch.from_numpy(p), torch.from_numpy(t))
     _states_match(jax_full, port)
     _assert_match(jax_full.compute(), port.compute())
+
+
+@pytest.mark.parametrize("kind, name", [("multiclass", "calibration_b15"), ("multiclass", "jaccard_macro"),
+                                        ("binary", "calibration_b15")])
+def test_jax_state_loads_into_the_port_and_computes_the_same(kind, name):
+    factory = (MULTICLASS_SET if kind == "multiclass" else BINARY_SET)[name]
+    batches = _multiclass_batches(seed=5) if kind == "multiclass" else _binary_batches(seed=6)
+    jm = factory(jc)
+    for p, t in batches:
+        jm.update(jnp.asarray(p), jnp.asarray(t))
+    state = jm.state_dict(persistent_only=False)
+    port = load_jax_state(factory(tc, device="cpu"), state)
+    key = "bins" if name.startswith("calibration") else "confmat"
+    assert port.state_dict(persistent_only=False)[key].dtype == (torch.float32 if key == "bins" else torch.int32)
+    np.testing.assert_array_equal(port.state_dict(persistent_only=False)[key].numpy(), np.asarray(state[key]))
+    _assert_match(jm.compute(), port.compute())
 
 
 def test_jax_state_keeps_dtypes_and_lists():

@@ -2,6 +2,17 @@
 
 from torchmetrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy
 from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC
+from torchmetrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+)
+from torchmetrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
+from torchmetrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
@@ -15,6 +26,20 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     MulticlassF1Score,
     MulticlassFBetaScore,
 )
+from torchmetrics_tpu_torch.classification.jaccard import BinaryJaccardIndex, JaccardIndex, MulticlassJaccardIndex
+from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+)
+from torchmetrics_tpu_torch.classification.precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    Precision,
+    Recall,
+)
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -25,23 +50,44 @@ from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, 
 __all__ = [
     "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "BinaryAUROC",
     "BinaryAccuracy",
+    "BinaryAveragePrecision",
+    "BinaryCalibrationError",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
+    "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
+    "BinaryRecall",
     "BinaryStatScores",
+    "CalibrationError",
+    "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
+    "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassRecall",
     "MulticlassStatScores",
+    "Precision",
     "PrecisionRecallCurve",
+    "Recall",
     "StatScores",
 ]

@@ -2,6 +2,21 @@
 
 from torchmetrics_tpu_torch.functional.classification.accuracy import accuracy, binary_accuracy, multiclass_accuracy
 from torchmetrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc
+from torchmetrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+)
+from torchmetrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
+)
+from torchmetrics_tpu_torch.functional.classification.cohen_kappa import (
+    binary_cohen_kappa,
+    cohen_kappa,
+    multiclass_cohen_kappa,
+)
 from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
     confusion_matrix,
@@ -14,6 +29,24 @@ from torchmetrics_tpu_torch.functional.classification.f_beta import (
     fbeta_score,
     multiclass_f1_score,
     multiclass_fbeta_score,
+)
+from torchmetrics_tpu_torch.functional.classification.jaccard import (
+    binary_jaccard_index,
+    jaccard_index,
+    multiclass_jaccard_index,
+)
+from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+)
+from torchmetrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    precision,
+    recall,
 )
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
@@ -30,26 +63,47 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
 __all__ = [
     "accuracy",
     "auroc",
+    "average_precision",
     "binary_accuracy",
     "binary_auroc",
+    "binary_average_precision",
+    "binary_calibration_error",
+    "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
+    "binary_jaccard_index",
+    "binary_matthews_corrcoef",
+    "binary_precision",
     "binary_precision_recall_curve",
+    "binary_recall",
     "binary_roc",
     "binary_stat_scores",
+    "calibration_error",
+    "cohen_kappa",
     "confusion_matrix",
     "f1_score",
     "fbeta_score",
+    "jaccard_index",
+    "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
+    "multiclass_average_precision",
+    "multiclass_calibration_error",
+    "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
+    "multiclass_jaccard_index",
+    "multiclass_matthews_corrcoef",
+    "multiclass_precision",
     "multiclass_precision_recall_curve",
+    "multiclass_recall",
     "multiclass_roc",
     "multiclass_stat_scores",
+    "precision",
     "precision_recall_curve",
+    "recall",
     "roc",
     "stat_scores",
 ]

@@ -1,7 +1,7 @@
 """Final reductions turning tp/fp/tn/fn counts into metric values.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/_stat_reduce.py``, cut to
-the accuracy and F-beta reductions of this slice.
+the accuracy, precision/recall and F-beta reductions.
 """
 
 from __future__ import annotations
@@ -63,6 +63,29 @@ def _accuracy_reduce(
             return safe_divide(tp + tn, tp + tn + fp + fn)
         return safe_divide(tp, tp + fn)
     score = safe_divide(tp + tn, tp + tn + fp + fn) if multilabel else safe_divide(tp, tp + fn)
+    return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn, top_k)
+
+
+def _precision_recall_reduce(
+    stat: str,
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+    top_k: int = 1,
+    zero_division: float = 0.0,
+) -> Tensor:
+    different_stat = fp if stat == "precision" else fn  # the only difference between the two
+    if average == "binary":
+        return safe_divide(tp, tp + different_stat, zero_division)
+    if average == "micro":
+        tp = _micro_sum(tp, multidim_average)
+        different_stat = _micro_sum(different_stat, multidim_average)
+        return safe_divide(tp, tp + different_stat, zero_division)
+    score = safe_divide(tp, tp + different_stat, zero_division)
     return _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn, top_k)
 
 

@@ -10,14 +10,20 @@ the launches of each kernel, so a run can show that its path went through them.
   (``torchmetrics_tpu/ops/pallas_kernels.py:70``).
 - ``binned_curve_counts`` replaces ``binned_curve_counts_pallas``
   (``torchmetrics_tpu/ops/pallas_kernels.py:140``).
+- ``weighted_bincount`` replaces ``weighted_bincount_pallas``
+  (``torchmetrics_tpu/ops/pallas_kernels.py:205``).
+- ``bincount`` replaces ``bincount_pallas``
+  (``torchmetrics_tpu/ops/pallas_kernels.py:267``); its masked form is the K=1 case
+  of ``weighted_bincount``, as on the TPU.
 
-Both count in int32, exactly.
+All but ``weighted_bincount`` count in int32, exactly. ``weighted_bincount`` sums in
+float64 and rounds to float32 once, on the card and in its plain version alike.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -25,7 +31,7 @@ from torchmetrics_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-LAUNCHES: Dict[str, int] = {"confusion_matrix": 0, "binned_curve_counts": 0}
+LAUNCHES: Dict[str, int] = {"confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0}
 
 
 def reset_launch_counts() -> None:
@@ -44,6 +50,12 @@ _ARGTYPES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     ),
+    "weighted_bincount": (
+        "tm_weighted_bincount",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+    ),
+    "bincount": ("tm_bincount", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
 }
 _ENTRY_POINTS: Dict[str, Callable[..., int]] = {}
 
@@ -168,4 +180,76 @@ def binned_curve_counts(scores: Tensor, labels: Tensor, valid: Tensor, threshold
             "binned_curve_counts", scores.device,
             scores.data_ptr(), labels.data_ptr(), mask.data_ptr(), n, thr.data_ptr(), thr.numel(), out.data_ptr(),
         )
+    return out
+
+
+# ------------------------------------------------------------------ weighted bincount
+
+
+def weighted_bincount_plain(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
+    """Plain PyTorch version of the weighted-bincount kernel: float32 [K, C].
+
+    ``out[k, c] = sum_i weights[k, i] * [x[i] == c]``, summed in float64 and rounded
+    once. An index outside ``[0, C)`` counts nowhere. As in the one-hot contraction of
+    the TPU kernel, where ``0 * NaN`` and ``0 * inf`` are NaN, a non-finite weight of
+    row k makes every bin of row k that it does not land in NaN.
+    """
+    x = x.reshape(-1).to(torch.int64)
+    w = weights.to(torch.float64)
+    k = w.shape[0]
+    keep = (x >= 0) & (x < minlength)
+    idx, w_kept = x[keep], w[:, keep]
+    sums = torch.zeros((k, minlength), dtype=torch.float64, device=w.device).index_add_(1, idx, w_kept)
+    bad = ~torch.isfinite(w)
+    bad_here = torch.zeros((k, minlength), dtype=torch.int64, device=w.device)
+    bad_here.index_add_(1, idx, bad[:, keep].to(torch.int64))
+    poisoned = bad.sum(dim=1, keepdim=True) > bad_here
+    return torch.where(poisoned, torch.full_like(sums, float("nan")), sums).to(torch.float32)
+
+
+def weighted_bincount(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
+    """float32 [K, C] weighted bincounts of the int indices ``x`` [N] by ``weights`` [K, N]."""
+    if not _on_card(x, weights):
+        return weighted_bincount_plain(x, weights, minlength)
+    x = x.reshape(-1).to(torch.int32).contiguous()
+    w = weights.to(torch.float32).contiguous()
+    if w.ndim != 2 or w.shape[1] != x.numel():
+        raise ValueError(f"Expected weights of shape [K, {x.numel()}], got {tuple(w.shape)}")
+    k, n = w.shape
+    if n == 0 or k == 0 or minlength == 0:
+        return torch.zeros((k, minlength), dtype=torch.float32, device=w.device)
+    sums = torch.zeros((k, minlength), dtype=torch.float64, device=w.device)
+    nonfinite = torch.zeros(k + k * minlength, dtype=torch.int32, device=w.device)
+    out = torch.empty((k, minlength), dtype=torch.float32, device=w.device)
+    _launch(
+        "weighted_bincount", w.device,
+        x.data_ptr(), w.data_ptr(), n, k, minlength, sums.data_ptr(), nonfinite.data_ptr(), out.data_ptr(),
+    )
+    return out
+
+
+# --------------------------------------------------------------------------- bincount
+
+
+def bincount_plain(x: Tensor, minlength: int) -> Tensor:
+    """Plain PyTorch version of the bincount kernel: int32 [C]; an index outside ``[0, C)`` counts nowhere."""
+    x = x.reshape(-1).to(torch.int64)
+    return torch.bincount(x[(x >= 0) & (x < minlength)], minlength=minlength).to(torch.int32)
+
+
+def bincount(x: Tensor, valid: Optional[Tensor], minlength: int) -> Tensor:
+    """int32 [C] counts of the int indices ``x`` [N], over the samples where ``valid``.
+
+    With ``valid`` this is the K=1 case of ``weighted_bincount`` cast to int32, as the
+    TPU kernel routes it; without, the bincount kernel reads only the indices.
+    """
+    if valid is not None:
+        counts = weighted_bincount(x, valid.reshape(1, -1).to(torch.float32), minlength)
+        return counts[0].to(torch.int32)
+    if not _on_card(x):
+        return bincount_plain(x, minlength)
+    x = x.reshape(-1).to(torch.int32).contiguous()
+    out = torch.zeros(minlength, dtype=torch.int32, device=x.device)
+    if x.numel() and minlength:
+        _launch("bincount", x.device, x.data_ptr(), x.numel(), minlength, out.data_ptr())
     return out

@@ -2,16 +2,19 @@
 
 Counterpart of ``torchmetrics_tpu/utils/data.py``. The JAX package's ``first_argmax``
 works around a slow minor-axis reduce of XLA on the CPU; here it is ``torch.argmax``,
-which also returns the first maximum on ties. ``_bincount`` and
-``_flexible_bincount`` come with the bincount kernel in a later slice.
+which also returns the first maximum on ties. ``_bincount`` counts with the
+hand-written bincount kernel on the card at every size: the JAX package's size gate
+is a TPU VMEM budget and has no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
+
+from torchmetrics_tpu_torch.ops import kernels
 
 Tensor = torch.Tensor
 
@@ -64,6 +67,25 @@ def safe_divide(num: Tensor, denom: Tensor, zero_division: float = 0.0) -> Tenso
     zero_mask = denom == 0
     out = num / torch.where(zero_mask, torch.ones_like(denom), denom)
     return torch.where(zero_mask, torch.full_like(out, zero_division), out)
+
+
+def _bincount(x: Tensor, minlength: Optional[int] = None) -> Tensor:
+    """int32 [minlength] counts of each value of the int tensor ``x``; values outside
+    ``[0, minlength)`` count nowhere."""
+    if minlength is None:
+        raise ValueError("`minlength` must be given")
+    return kernels.bincount(x.reshape(-1), None, minlength)
+
+
+def _flexible_bincount(x: Tensor) -> Tensor:
+    """Counts of each observed value of ``x``, in ascending order of the values.
+
+    Eager by nature: the output length (the number of distinct values) and the bin
+    range depend on the data, so it synchronises with the host for both.
+    """
+    x = x - x.min()
+    unique_ids = torch.unique(x)
+    return _bincount(x, minlength=int(x.max()) + 1)[unique_ids]
 
 
 def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
