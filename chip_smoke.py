@@ -11,7 +11,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    shapes and at the shapes the main path gives it, with its time, its bound, the
    plain version's time, where one PyTorch call computes the same function that
    call's time, and the launches the check and timing made. Counts must be equal;
-   the weighted bincount's float rows must agree within WEIGHTED_RTOL.
+   the weighted bincount's float rows must agree within WEIGHTED_RTOL, the SSIM
+   moments within MOMENTS_ATOL (with NaN where the plain version has it).
 4. ``imagenet_eval``: an ImageNet-1k validation pass, 50,000 samples, 1000 classes,
    batch 500: top-1 and macro accuracy, macro F1, macro precision and recall, the
    confusion matrix, macro Jaccard, Matthews, Cohen's kappa, calibration error
@@ -22,6 +23,14 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
 6. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
+7. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+   DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
+   MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
+   predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
+   SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
+   8 images with fresh metrics on both sides.
+8. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+   2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
 integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
@@ -30,6 +39,9 @@ phase requires its kernels to have launched. Each eval phase then profiles a few
 warm steps on fresh metrics (``torch.profiler``): the device time per step, the
 device's busy share of the wall clock and the kernels that take most of it. The
 retrieval phase requires the CPU's counts to be equal.
+The image phase compares floats within 1e-5 plus 1e-6 of the CPU's value (sums over
+images), and the states that sum over pixels (PSNR's squared error, UQI's sum, the
+total variation) within 1e-5 relative: float32 sums of ~10^7 terms in another order.
 Every phase line carries its wall time; the last four lines are the script's total
 wall time, the ``nvidia-smi`` line, a JSON line with every kernel, and
 ``{"ok": true, "device": {...}}``. Times come from CUDA events over many launches
@@ -71,7 +83,27 @@ KERNEL_SOURCES = {
         "torchmetrics_tpu/ops/pallas_kernels.py:205",
     ),
     "bincount": ("torchmetrics_tpu_torch/ops/csrc/bincount.cu", "torchmetrics_tpu/ops/pallas_kernels.py:267"),
+    "ssim_moments": ("torchmetrics_tpu_torch/ops/csrc/ssim_moments.cu", "torchmetrics_tpu/ops/pallas_kernels.py:334"),
 }
+# the SSIM moments kernel against its plain version, inputs in [0, 1]: float32 window
+# sums of up to 71 taps per pass in the same order, the card fusing each multiply-add
+MOMENTS_ATOL = 1e-5
+# the library yardstick (a float32 convolution, TF32 off) against the plain
+# version: another summation order over up to 71 x 71 taps; TF32 would miss by ~1e-3
+LIBRARY_CONV_ATOL = 1e-4
+# image_restoration_eval: float states that sum over images get 1e-6 of the CPU's
+# value on top of FLOAT_ATOL; those that sum over ~10^7 pixels get PIXEL_SUM_RTOL
+IMAGE_RTOL = 1e-6
+PIXEL_SUM_RTOL = 1e-5
+PIXEL_SUMS = ("state.psnr.sum_squared_error", "state.uqi.sum_uqi", "state.tv_preds.score", "value.uqi",
+              "value.tv_preds")
+# PSNR = 10 log10(range^2 / mse): a relative error e of the squared error moves it by
+# 10 / ln(10) * e dB
+PSNR_ATOL = FLOAT_ATOL + 10 / 2.302585092994046 * PIXEL_SUM_RTOL
+# the SSIM gradient on the card against the CPU: 1e-5 absolute, and 1e-4 of the
+# largest gradient, since the gradient of a mean over 3 * 256^2 pixels is ~1e-5
+GRAD_ATOL = 1e-5
+GRAD_RTOL_OF_MAX = 1e-4
 
 
 def emit(obj) -> None:
@@ -277,6 +309,80 @@ def kernel_record_bincount(n: int, c: int, seed: int, main_path: bool) -> dict:
     return {**record, "launches": kernels.LAUNCHES["bincount"] - before}
 
 
+def _window(kind: str, size: int, sigma: float, device: str = "cuda"):
+    """A 1D SSIM window: the port's cached gaussian, or a uniform one."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image.utils import _gaussian
+
+    if kind == "uniform":
+        return torch.full((size,), 1.0 / size, device=device)
+    return _gaussian(size, sigma, torch.float32, device)[0]
+
+
+def kernel_record_ssim_moments(planes: int, hp: int, wp: int, window_h: tuple, window_w: tuple, seed: int,
+                               main_path: bool, nan: bool = False) -> dict:
+    """Padded planes in [0, 1] (one NaN pixel with ``nan``); the yardstick is the grouped
+    convolution of the JAX package's conv branch over the stacked products, timed alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from torchmetrics_tpu_torch.functional.image.utils import _full_float32
+    from torchmetrics_tpu_torch.ops import kernels
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = torch.rand(planes, hp, wp, generator=g, device="cuda")
+    t = torch.rand(planes, hp, wp, generator=g, device="cuda")
+    if nan:
+        p[0, hp // 2, wp // 3] = float("nan")
+    wh, ww = _window(*window_h), _window(*window_w)
+    kh, kw = wh.numel(), ww.numel()
+    ho, wo = hp - kh + 1, wp - kw + 1
+    before = kernels.LAUNCHES["ssim_moments"]
+    got = kernels.ssim_moments(p, t, wh, ww)
+    torch.cuda.synchronize()
+    got = got.cpu()
+    want = kernels.ssim_moments_plain(p.cpu(), t.cpu(), wh.cpu(), ww.cpu())
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError(f"ssim_moments kernel spreads NaN unlike the plain version at P={planes}, {hp}x{wp}")
+    if nan:  # E[p], E[p^2] and E[pt] are NaN at every output whose window reads the pixel
+        y, x = hp // 2, wp // 3
+        reach = (min(y, ho - 1) - max(0, y - kh + 1) + 1) * (min(x, wo - 1) - max(0, x - kw + 1) + 1)
+        if int(torch.isnan(want).sum()) != 3 * reach:
+            raise AssertionError("the NaN pixel did not reach the moments whose windows read it")
+    err = float(torch.nan_to_num((got - want).abs(), nan=0.0).max())
+    if err > MOMENTS_ATOL:
+        raise AssertionError(f"ssim_moments kernel != plain at P={planes}, {hp}x{wp}, {kh}x{kw}: max abs err {err}")
+
+    channels = 3 if planes % 3 == 0 else 1
+    stacked = torch.stack((p, t, p * p, t * t, p * t)).reshape(5 * planes // channels, channels, hp, wp)
+    kernel2d = (wh[:, None] * ww[None, :]).expand(channels, 1, kh, kw).contiguous()
+
+    def library():
+        with _full_float32():
+            return F.conv2d(stacked, kernel2d, groups=channels)
+
+    lib = library().reshape(5, planes, ho, wo).transpose(0, 1).cpu()
+    finite = ~torch.isnan(want)
+    library_err = float((lib - want).abs()[finite].max())
+    if library_err > LIBRARY_CONV_ATOL:
+        raise AssertionError(f"the float32 convolution yardstick disagrees with the plain version: {library_err}")
+    big = planes * hp * wp > 1 << 24
+    byte_ms = (2 * planes * hp * wp + planes * 5 * ho * wo + kh + kw) * 4 / HBM_BYTES_PER_S * 1e3
+    op_ms = (2 * planes * 5 * (ho * wp * kh + ho * wo * kw) + 3 * planes * hp * wp) / FP32_OPS_PER_S * 1e3
+    record = {
+        "kernel": "ssim_moments", "planes": planes, "hp": hp, "wp": wp, "kh": kh, "kw": kw, "nan": nan,
+        "main_path": main_path, "max_abs_err": err, "library_max_abs_err": library_err,
+        "kernel_ms": time_ms(lambda: kernels.ssim_moments(p, t, wh, ww), reps=10 if big else 20),
+        "plain_ms": time_ms(lambda: kernels.ssim_moments_plain(p, t, wh, ww), reps=3, warmup=1),
+        "library_ms": time_ms(library, reps=5 if big else 20, warmup=1),
+        "library": "F.conv2d over the stacked products, groups=C, TF32 off, the convolution alone",
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+    }
+    return {**record, "launches": kernels.LAUNCHES["ssim_moments"] - before}
+
+
 # -------------------------------------------------------------------------- evals
 
 
@@ -363,15 +469,21 @@ def run_loop(metrics: dict, preds, target, batch: int):
     return values, states, seconds
 
 
-def compare(card, cpu, where: str) -> float:
-    """Integers (and thresholds) equal, floats within FLOAT_ATOL (plus BINS_RTOL of the CPU's
-    value for a calibration ``bins`` state); returns the largest float gap."""
+def _classification_tolerance(where: str):
+    return FLOAT_ATOL, BINS_RTOL if where.endswith(".bins") else 0.0
+
+
+def compare(card, cpu, where: str, tolerance=_classification_tolerance) -> float:
+    """Integers (and thresholds) equal, floats within ``tolerance(where)`` = (atol, rtol of
+    the CPU's value): FLOAT_ATOL, plus BINS_RTOL for a calibration ``bins`` state, in the
+    classification phases. Returns the largest float gap."""
     import torch
 
     if isinstance(card, dict):
-        return max([compare(card[k], cpu[k], f"{where}.{k}") for k in card] or [0.0])
+        return max([compare(card[k], cpu[k], f"{where}.{k}", tolerance) for k in card] or [0.0])
     if isinstance(card, (list, tuple)):
-        return max([compare(a, b, f"{where}[{i}]") for i, (a, b) in enumerate(zip(card, cpu, strict=True))] or [0.0])
+        return max([compare(a, b, f"{where}[{i}]", tolerance)
+                    for i, (a, b) in enumerate(zip(card, cpu, strict=True))] or [0.0])
     a, b = card.cpu(), cpu
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"{where}: card {tuple(a.shape)} {a.dtype} vs cpu {tuple(b.shape)} {b.dtype}")
@@ -383,10 +495,10 @@ def compare(card, cpu, where: str) -> float:
         return 0.0
     both_nan = torch.isnan(a) & torch.isnan(b)
     diff = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
-    rtol = BINS_RTOL if where.endswith(".bins") else 0.0
-    excess = diff - (FLOAT_ATOL + rtol * b.abs())
+    atol, rtol = tolerance(where)
+    excess = diff - (atol + rtol * b.abs())
     if not bool((excess <= 0).all()):
-        raise AssertionError(f"{where}: float gap {float(diff.max())} over {FLOAT_ATOL} + {rtol} * |cpu|")
+        raise AssertionError(f"{where}: float gap {float(diff.max())} over {atol} + {rtol} * |cpu|")
     return float(diff.max())
 
 
@@ -425,6 +537,127 @@ def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile
         "float_gaps": {metric: g for metric, g in gaps.items() if any(g.values())}, "values": summary,
         "profile": profile_loop(metrics_fn("cuda"), preds, target, batch, profile_steps),
     }
+
+
+class PredsOnly:
+    """Feeds a one-input metric (total variation) the predictions of an eval loop."""
+
+    def __init__(self, metric):
+        self.metric = metric
+
+    def update(self, preds, target) -> None:
+        self.metric.update(preds)
+
+    def compute(self):
+        return self.metric.compute()
+
+    def state_dict(self, persistent_only: bool = True) -> dict:
+        return self.metric.state_dict(persistent_only=persistent_only)
+
+
+def image_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import image as ti
+
+    kw = {"device": device}
+    return {
+        "ssim": ti.StructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+        "ms_ssim": ti.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+        "psnr": ti.PeakSignalNoiseRatio(data_range=1.0, **kw),
+        "uqi": ti.UniversalImageQualityIndex(**kw),
+        "rmse_sw": ti.RootMeanSquaredErrorUsingSlidingWindow(window_size=8, **kw),
+        "tv_preds": PredsOnly(ti.TotalVariation(**kw)),
+    }
+
+
+def image_data(n: int = 100, height: int = 1356, width: int = 2040, seed: int = 21, device: str = "cuda"):
+    """A seeded smooth RGB field in [0, 1] (bicubic over a coarse random grid) as the
+    target, and the target plus gaussian noise of sigma 0.05, clipped, as the output
+    of a restoration model. Made on the card in bulk: about 3.3 GB per tensor."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    coarse = torch.rand(n, 3, height // 40, width // 40, generator=g, device=device)
+    target = F.interpolate(coarse, size=(height, width), mode="bicubic", align_corners=False).clamp_(0, 1)
+    noise = torch.randn(target.shape, generator=g, device=device)
+    preds = noise.mul_(0.05).add_(target).clamp_(0, 1)
+    return preds, target
+
+
+def _image_tolerance(where: str):
+    if where in PIXEL_SUMS:
+        return FLOAT_ATOL, PIXEL_SUM_RTOL
+    if where == "value.psnr":
+        return PSNR_ATOL, 0.0
+    return FLOAT_ATOL, IMAGE_RTOL
+
+
+def image_phase(batch: int = 4, cpu_images: int = 8, profile_steps: int = 3) -> dict:
+    """The restoration eval loop on the card, then the card against the CPU on the first images."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    preds, target = image_data()
+    steps = -(-preds.shape[0] // batch)
+    card_metrics = image_metrics("cuda")
+    kernels.reset_launch_counts()
+    card_values, _, seconds = run_loop(card_metrics, preds, target, batch)
+    launches = dict(kernels.LAUNCHES)
+    if launches["ssim_moments"] != 6 * steps:
+        raise AssertionError(f"image_restoration_eval: {launches['ssim_moments']} ssim_moments launches, "
+                             f"expected 6 per step over {steps} steps")
+    for name, value in card_values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"image_restoration_eval: {name} is not finite: {value}")
+    if not 0.0 < float(card_values["ssim"]) <= 1.0 or not 0.0 < float(card_values["ms_ssim"]) <= 1.0:
+        raise AssertionError("image_restoration_eval: SSIM or MS-SSIM outside (0, 1]")
+
+    p8, t8 = preds[:cpu_images], target[:cpu_images]
+    card8_values, card8_states, _ = run_loop(image_metrics("cuda"), p8, t8, batch)
+    cpu_values, cpu_states, cpu_seconds = run_loop(image_metrics("cpu"), p8.cpu(), t8.cpu(), batch)
+    gaps = {}
+    for metric in card8_states:
+        for key, value in card8_states[metric].items():
+            where = f"state.{metric}.{key}"
+            gaps[where] = compare(value, cpu_states[metric][key], where, _image_tolerance)
+        where = f"value.{metric}"
+        gaps[where] = compare(card8_values[metric], cpu_values[metric], where, _image_tolerance)
+    return {
+        "phase": "image_restoration_eval", "images": int(preds.shape[0]), "image_shape": list(preds.shape[1:]),
+        "batch": batch, "steps": steps, "wall_s": seconds, "us_per_step": seconds / steps * 1e6,
+        "launches": launches, "values": {name: float(v) for name, v in card_values.items()},
+        "cpu_compared_images": cpu_images, "cpu_wall_s": cpu_seconds, "gaps": gaps,
+        "values_first_images": {name: float(v) for name, v in cpu_values.items()},
+        "profile": profile_loop(image_metrics("cuda"), preds, target, batch, profile_steps),
+    }
+
+
+def gradient_phase() -> dict:
+    """``structural_similarity_index_measure(...).backward()`` on the card and on the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image import structural_similarity_index_measure
+    from torchmetrics_tpu_torch.ops import kernels
+
+    preds, target = image_data(n=2, height=256, width=256, seed=31)
+    grads, values = [], []
+    before = kernels.LAUNCHES["ssim_moments"]
+    for device in ("cuda", "cpu"):
+        x = preds.detach().to(device).requires_grad_()
+        value = structural_similarity_index_measure(x, target.to(device), data_range=1.0)
+        value.backward()
+        grads.append(x.grad.cpu())
+        values.append(float(value.detach()))
+    launches = kernels.LAUNCHES["ssim_moments"] - before
+    if launches != 1:
+        raise AssertionError(f"ssim_gradient: expected one ssim_moments launch, got {launches}")
+    gap = float((grads[0] - grads[1]).abs().max())
+    largest = float(grads[1].abs().max())
+    if not bool(torch.isfinite(grads[0]).all()) or gap > GRAD_ATOL or gap > GRAD_RTOL_OF_MAX * largest:
+        raise AssertionError(f"ssim_gradient: card vs CPU gap {gap} (largest gradient {largest})")
+    return {"phase": "ssim_gradient", "shape": list(preds.shape), "ssim_card": values[0], "ssim_cpu": values[1],
+            "max_grad_gap": gap, "max_abs_grad": largest, "launches": launches}
 
 
 def retrieval_phase() -> dict:
@@ -537,7 +770,21 @@ def main() -> int:
                 for c in (15, 1000, 8192) for k in (1, 3)]
     records.append(kernel_record_bincount(6980 * 1000, 6980, seed=9, main_path=True))
     records += [kernel_record_bincount(1 << 20, c, seed=c, main_path=False) for c in (100, 8192, 1 << 16)]
-    emit({"phase": "kernels", "card": smi, "l2": "warm", "wall_s": time.perf_counter() - t0, "records": records})
+    gauss11 = ("gauss", 11, 1.5)
+    # main path: 4 DIV2K validation images (12 planes) padded by 5, then the first MS-SSIM scale
+    records.append(kernel_record_ssim_moments(12, 1366, 2050, gauss11, gauss11, seed=51, main_path=True))
+    records.append(kernel_record_ssim_moments(12, 688, 1030, gauss11, gauss11, seed=52, main_path=True))
+    records += [
+        kernel_record_ssim_moments(3, 42, 42, ("uniform", 7, 0.0), ("uniform", 7, 0.0), seed=53, main_path=False),
+        kernel_record_ssim_moments(48, 266, 266, gauss11, gauss11, seed=54, main_path=False),
+        kernel_record_ssim_moments(12, 522, 534, gauss11, ("gauss", 23, 3.0), seed=55, main_path=False),
+        kernel_record_ssim_moments(3, 326, 326, ("gauss", 71, 10.0), ("gauss", 71, 10.0), seed=56, main_path=False),
+        kernel_record_ssim_moments(2, 90, 400, ("gauss", 5, 1.0), ("gauss", 151, 21.5), seed=57, main_path=False),
+        kernel_record_ssim_moments(5, 77, 101, gauss11, gauss11, seed=58, main_path=False),
+        kernel_record_ssim_moments(1, 266, 266, gauss11, gauss11, seed=59, main_path=False, nan=True),
+    ]
+    emit({"phase": "kernels", "card": smi, "l2": "warm below 50 MB of inputs", "wall_s": time.perf_counter() - t0,
+          "records": records})
 
     phases = []
     for name, metrics_fn, data_fn, batch, profile_steps in (
@@ -553,6 +800,12 @@ def main() -> int:
     retrieval = retrieval_phase()
     phases.append(retrieval)
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    image = image_phase()
+    phases.append(image)
+    emit({**image, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({**gradient_phase(), "card": smi, "phase_wall_s": time.perf_counter() - t0})
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -564,7 +817,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-            "shape": {k: main[k] for k in ("n", "classes", "thresholds", "rows", "bins") if k in main},
+            "shape": {k: main[k] for k in ("n", "classes", "thresholds", "rows", "bins", "planes", "hp", "wp", "kh",
+                                           "kw") if k in main},
         })
     emit({"total_wall_s": time.perf_counter() - script_t0})
     print(smi)

@@ -16,7 +16,13 @@ import torch
 torch.set_num_threads(2)
 
 from torchmetrics_tpu_torch import classification as tc  # noqa: E402
+from torchmetrics_tpu_torch import image as ti  # noqa: E402
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds  # noqa: E402
+from torchmetrics_tpu_torch.functional.image import (  # noqa: E402
+    multiscale_structural_similarity_index_measure,
+    structural_similarity_index_measure,
+)
+from torchmetrics_tpu_torch.functional.image.utils import _gaussian  # noqa: E402
 from torchmetrics_tpu_torch.ops import kernels  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -94,7 +100,14 @@ def test_launches_are_counted_only_for_the_kernels(card):
     kernels.bincount(x, None, 4)
     kernels.bincount(x, valid.to(card), 4)  # the masked form is the weighted kernel's K=1 case
     kernels.bincount(x[:0], None, 4)  # empty: nothing to launch
-    assert kernels.LAUNCHES == {"confusion_matrix": 1, "binned_curve_counts": 1, "weighted_bincount": 2, "bincount": 1}
+    planes = torch.rand(2, 12, 13, device=card)
+    window = torch.ones(3, device=card) / 3
+    kernels.ssim_moments(planes, planes, window, window)
+    kernels.ssim_moments(planes[:0], planes[:0], window, window)  # no planes: nothing to launch
+    kernels.ssim_moments(planes.cpu(), planes.cpu(), window.cpu(), window.cpu())  # CPU: not counted
+    assert kernels.LAUNCHES == {
+        "confusion_matrix": 1, "binned_curve_counts": 1, "weighted_bincount": 2, "bincount": 1, "ssim_moments": 1,
+    }
     with pytest.raises(ValueError, match="one device"):
         kernels.confusion_matrix(preds.to(card), target, valid, 4)
 
@@ -195,4 +208,85 @@ def test_metric_on_the_card_equals_the_cpu(card, name):
         _compare(on_card(probs.to(card), target.to(card)), on_cpu(probs, target))
     for key, value in on_card.state_dict(persistent_only=False).items():
         _compare(value, on_cpu.state_dict(persistent_only=False)[key])
+    _compare(on_card.compute(), on_cpu.compute())
+
+
+# The SSIM moments kernel against its plain version: float32 sums of up to 71 taps per
+# pass, in the same order, on inputs in [0, 1]; the card fuses each multiply-add.
+MOMENTS_ATOL = 1e-5
+
+
+def _window(kind: str, size: int, sigma: float) -> torch.Tensor:
+    if kind == "uniform":
+        return torch.full((size,), 1.0 / size)
+    return _gaussian(size, sigma)[0]
+
+
+@pytest.mark.parametrize(
+    "planes, hp, wp, wh, ww",
+    [(3, 38, 38, ("uniform", 7, 0), ("uniform", 7, 0)),  # 32 x 32 images, 7 x 7 uniform
+     (48, 266, 266, ("gauss", 11, 1.5), ("gauss", 11, 1.5)),  # 16 RGB 256^2 crops
+     (3, 200, 210, ("gauss", 11, 1.5), ("gauss", 23, 3.0)),  # sigma = (1.5, 3.0): 11 x 23
+     (2, 150, 170, ("gauss", 71, 10.0), ("gauss", 71, 10.0)),  # sigma = 10: 71 x 71
+     (2, 90, 260, ("gauss", 5, 1.0), ("gauss", 151, 21.5)),  # a columns window past one chunk
+     (5, 77, 101, ("gauss", 11, 1.5), ("gauss", 11, 1.5)),  # no multiple of the tile
+     (1, 11, 11, ("gauss", 11, 1.5), ("gauss", 11, 1.5)),  # one output
+     (2, 40, 45, ("gauss", 1, 1.0), ("uniform", 3, 0))],
+)
+def test_ssim_moments_kernel_matches_plain(card, planes, hp, wp, wh, ww):
+    g = torch.Generator().manual_seed(planes + hp + wp)
+    p, t = torch.rand(planes, hp, wp, generator=g), torch.rand(planes, hp, wp, generator=g)
+    wh, ww = _window(*wh), _window(*ww)
+    got = kernels.ssim_moments(p.to(card), t.to(card), wh.to(card), ww.to(card))
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), kernels.ssim_moments_plain(p, t, wh, ww), atol=MOMENTS_ATOL, rtol=0)
+
+
+def test_ssim_moments_kernel_spreads_a_nan_as_the_plain_version(card):
+    g = torch.Generator().manual_seed(5)
+    p, t = torch.rand(3, 60, 70, generator=g), torch.rand(3, 60, 70, generator=g)
+    p[1, 33, 40] = float("nan")
+    w = _gaussian(11, 1.5)[0]
+    got = kernels.ssim_moments(p.to(card), t.to(card), w.to(card), w.to(card)).cpu()
+    want = kernels.ssim_moments_plain(p, t, w, w)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and int(torch.isnan(want).sum()) == 3 * 11 * 11
+    torch.testing.assert_close(got, want, atol=MOMENTS_ATOL, rtol=0, equal_nan=True)
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_moments(card, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain SSIM moments ran on the card's path")
+
+    monkeypatch.setattr(kernels, "ssim_moments_plain", refuse)
+    g = torch.Generator().manual_seed(6)
+    p = torch.rand(2, 3, 200, 200, generator=g).to(card)
+    t = (p * 0.8 + 0.1).requires_grad_()
+    kernels.reset_launch_counts()
+    structural_similarity_index_measure(p, t, data_range=1.0).backward()
+    multiscale_structural_similarity_index_measure(p, t.detach(), data_range=1.0)
+    assert kernels.LAUNCHES["ssim_moments"] == 1 + 5 and t.grad is not None
+
+
+IMAGE_METRICS = {
+    "ssim": lambda **k: ti.StructuralSimilarityIndexMeasure(data_range=1.0, **k),
+    "ssim_none_uniform": lambda **k: ti.StructuralSimilarityIndexMeasure(reduction="none", gaussian_kernel=False, **k),
+    "ms_ssim": lambda **k: ti.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, betas=(0.3, 0.4, 0.3), **k),
+    "psnr": lambda **k: ti.PeakSignalNoiseRatio(data_range=1.0, **k),
+    "uqi": lambda **k: ti.UniversalImageQualityIndex(**k),
+    "rmse_sw": lambda **k: ti.RootMeanSquaredErrorUsingSlidingWindow(**k),
+}
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_METRICS))
+def test_image_metric_on_the_card_equals_the_cpu(card, name):
+    g = torch.Generator().manual_seed(8)
+    batches = []
+    for _ in range(2):
+        target = torch.rand(2, 3, 96, 96, generator=g)
+        preds = (target + 0.05 * torch.randn(2, 3, 96, 96, generator=g)).clamp(0, 1)
+        batches.append((preds, target))
+    on_card, on_cpu = IMAGE_METRICS[name](), IMAGE_METRICS[name](device="cpu")
+    for preds, target in batches:
+        _compare(on_card(preds.to(card), target.to(card)), on_cpu(preds, target))
     _compare(on_card.compute(), on_cpu.compute())

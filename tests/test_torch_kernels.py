@@ -130,7 +130,11 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.weighted_bincount(x, torch.ones((3, 64)), 4)
     kernels.bincount(x, None, 4)
     kernels.bincount(x, torch.from_numpy(valid), 4)
-    assert kernels.LAUNCHES == {"confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0}
+    planes = torch.rand(2, 12, 13)
+    kernels.ssim_moments(planes, planes, torch.ones(3) / 3, torch.ones(5) / 5)
+    assert kernels.LAUNCHES == {
+        "confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0, "ssim_moments": 0,
+    }
 
 
 @pytest.mark.parametrize("which", ["confusion_matrix", "binned_curve_counts"])

@@ -1,4 +1,8 @@
 """Functional metrics of the port."""
 
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
-from torchmetrics_tpu_torch.functional.classification import __all__  # noqa: F401
+from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+
+__all__ = [*_classification_all, *_image_all]

@@ -9,6 +9,8 @@ from torchmetrics_tpu_torch.ops.kernels import (
     confusion_matrix,
     confusion_matrix_plain,
     reset_launch_counts,
+    ssim_moments,
+    ssim_moments_plain,
     weighted_bincount,
     weighted_bincount_plain,
 )
@@ -22,6 +24,8 @@ __all__ = [
     "confusion_matrix",
     "confusion_matrix_plain",
     "reset_launch_counts",
+    "ssim_moments",
+    "ssim_moments_plain",
     "weighted_bincount",
     "weighted_bincount_plain",
 ]

@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("confusion_matrix", "binned_curve_counts", "weighted_bincount", "bincount")
+SOURCES = ("confusion_matrix", "binned_curve_counts", "weighted_bincount", "bincount", "ssim_moments")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",

@@ -15,23 +15,31 @@ the launches of each kernel, so a run can show that its path went through them.
 - ``bincount`` replaces ``bincount_pallas``
   (``torchmetrics_tpu/ops/pallas_kernels.py:267``); its masked form is the K=1 case
   of ``weighted_bincount``, as on the TPU.
+- ``ssim_moments`` replaces ``ssim_moments_pallas``
+  (``torchmetrics_tpu/ops/pallas_kernels.py:334``). It is differentiable: a
+  ``torch.autograd.Function`` whose forward launches the kernel and whose backward
+  applies the adjoint of the separable window in plain PyTorch.
 
-All but ``weighted_bincount`` count in int32, exactly. ``weighted_bincount`` sums in
-float64 and rounds to float32 once, on the card and in its plain version alike.
+The counting kernels count in int32, exactly. ``weighted_bincount`` sums in float64
+and rounds to float32 once, on the card and in its plain version alike.
+``ssim_moments`` sums in float32, in the TPU kernel's order.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from torchmetrics_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
-LAUNCHES: Dict[str, int] = {"confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0}
+LAUNCHES: Dict[str, int] = {
+    "confusion_matrix": 0, "binned_curve_counts": 0, "weighted_bincount": 0, "bincount": 0, "ssim_moments": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -56,6 +64,11 @@ _ARGTYPES = {
          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
     ),
     "bincount": ("tm_bincount", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "ssim_moments": (
+        "tm_ssim_moments",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    ),
 }
 _ENTRY_POINTS: Dict[str, Callable[..., int]] = {}
 
@@ -253,3 +266,113 @@ def bincount(x: Tensor, valid: Optional[Tensor], minlength: int) -> Tensor:
     if x.numel() and minlength:
         _launch("bincount", x.device, x.data_ptr(), x.numel(), minlength, out.data_ptr())
     return out
+
+
+# ------------------------------------------------------------------------ SSIM moments
+
+
+def _separable_window_plain(planes: Tensor, window_h: Tensor, window_w: Tensor) -> Tensor:
+    """VALID separable window over the last two dims: the rows pass over ``window_h``,
+    then the columns pass over ``window_w``, each a shift-and-add in tap order."""
+    kh, kw = window_h.numel(), window_w.numel()
+    ho, wo = planes.shape[-2] - kh + 1, planes.shape[-1] - kw + 1
+    rows = window_h[0] * planes[..., 0:ho, :]
+    for k in range(1, kh):
+        rows = rows + window_h[k] * planes[..., k:k + ho, :]
+    cols = window_w[0] * rows[..., 0:wo]
+    for k in range(1, kw):
+        cols = cols + window_w[k] * rows[..., k:k + wo]
+    return cols
+
+
+def _ssim_moments_shapes(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> None:
+    if preds.ndim != 3 or preds.shape != target.shape:
+        raise ValueError(
+            f"Expected preds and target of one shape [P, Hp, Wp], got {tuple(preds.shape)} and {tuple(target.shape)}"
+        )
+    if window_h.numel() < 1 or window_w.numel() < 1:
+        raise ValueError("Expected non-empty windows")
+    if preds.shape[1] < window_h.numel() or preds.shape[2] < window_w.numel():
+        raise ValueError(
+            f"The window {window_h.numel()}x{window_w.numel()} is larger than the padded planes"
+            f" {preds.shape[1]}x{preds.shape[2]}"
+        )
+
+
+def ssim_moments_plain(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> Tensor:
+    """Plain PyTorch version of the SSIM moments kernel: float32 [P, 5, Ho, Wo].
+
+    ``preds`` and ``target`` are padded planes [P, Hp, Wp]; ``window_h`` [Kh] and
+    ``window_w`` [Kw] the two 1D factors of the window. The moments, in order, are
+    E[p], E[t], E[p^2], E[t^2] and E[pt] under the window, Ho = Hp - Kh + 1 and
+    Wo = Wp - Kw + 1. Differentiable by autograd.
+    """
+    _ssim_moments_shapes(preds, target, window_h, window_w)
+    p, t = preds.to(torch.float32), target.to(torch.float32)
+    planes = torch.stack((p, t, p * p, t * t, p * t), dim=1)
+    return _separable_window_plain(
+        planes, window_h.reshape(-1).to(torch.float32), window_w.reshape(-1).to(torch.float32)
+    )
+
+
+def _ssim_moments_backward(
+    preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor, grad: Tensor
+) -> Tuple[Tensor, Tensor]:
+    """Gradients of the moments' inputs: the adjoint of the separable window (the same
+    two passes with the windows flipped, over the cotangent planes zero-padded by the
+    window's reach), then the chain rule through the products."""
+    kh, kw = window_h.numel(), window_w.numel()
+    padded = F.pad(grad, (kw - 1, kw - 1, kh - 1, kh - 1))
+    g0, g1, g2, g3, g4 = _separable_window_plain(padded, window_h.flip(0), window_w.flip(0)).unbind(1)
+    return g0 + 2 * preds * g2 + target * g4, g1 + 2 * target * g3 + preds * g4
+
+
+def _ssim_moments_forward(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> Tensor:
+    if not _on_card(preds, target, window_h, window_w):
+        return ssim_moments_plain(preds, target, window_h, window_w)
+    p_planes, hp, wp = preds.shape
+    kh, kw = window_h.numel(), window_w.numel()
+    out = torch.empty((p_planes, 5, hp - kh + 1, wp - kw + 1), dtype=torch.float32, device=preds.device)
+    if p_planes:
+        _launch(
+            "ssim_moments", preds.device,
+            preds.data_ptr(), target.data_ptr(), window_h.data_ptr(), window_w.data_ptr(), p_planes, hp, wp, kh, kw,
+            out.data_ptr(),
+        )
+    return out
+
+
+class _SsimMoments(torch.autograd.Function):
+    """The kernel (or, for CPU tensors, its plain version) forward; the adjoint backward."""
+
+    @staticmethod
+    def forward(ctx, preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> Tensor:
+        ctx.save_for_backward(preds, target, window_h, window_w)
+        return _ssim_moments_forward(preds, target, window_h, window_w)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        preds, target, window_h, window_w = ctx.saved_tensors
+        d_preds, d_target = _ssim_moments_backward(preds, target, window_h, window_w, grad)
+        return (
+            d_preds if ctx.needs_input_grad[0] else None,
+            d_target if ctx.needs_input_grad[1] else None,
+            None,
+            None,
+        )
+
+
+def ssim_moments(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> Tensor:
+    """float32 [P, 5, Ho, Wo] window moments (E[p], E[t], E[p^2], E[t^2], E[pt]) of the
+    padded planes [P, Hp, Wp] under the separable window ``window_h`` x ``window_w``.
+
+    Any window size and plane size: the kernel tiles the planes. Gradients flow to
+    ``preds`` and ``target``, not to the windows.
+    """
+    _ssim_moments_shapes(preds, target, window_h, window_w)
+    return _SsimMoments.apply(
+        preds.to(torch.float32).contiguous(),
+        target.to(torch.float32).contiguous(),
+        window_h.reshape(-1).to(torch.float32).contiguous(),
+        window_w.reshape(-1).to(torch.float32).contiguous(),
+    )

@@ -1,4 +1,4 @@
-"""Input and placement checks used by the classification slice.
+"""Input and placement checks used by the classification and image slices.
 
 Counterpart of ``torchmetrics_tpu/utils/checks.py``, cut to what the port calls.
 The port adds the device check: every entry point runs on the card unless the
@@ -23,3 +23,12 @@ def _resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.de
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"Expected `device` to be a CUDA device or 'cpu', but got {device}.")
     return device
+
+
+def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
+    """Raise if ``preds`` and ``target`` have different shapes (the JAX package's message)."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            "Predictions and targets are expected to have the same shape, but got"
+            f" {tuple(preds.shape)} and {tuple(target.shape)}."
+        )
