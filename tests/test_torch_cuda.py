@@ -10,6 +10,8 @@ suite's JAX conftest:
 
 from __future__ import annotations
 
+import ctypes
+
 import pytest
 import torch
 
@@ -23,7 +25,7 @@ from torchmetrics_tpu_torch.functional.image import (  # noqa: E402
     structural_similarity_index_measure,
 )
 from torchmetrics_tpu_torch.functional.image.utils import _gaussian  # noqa: E402
-from torchmetrics_tpu_torch.ops import kernels  # noqa: E402
+from torchmetrics_tpu_torch.ops import _build, kernels  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +151,98 @@ def test_weighted_bincount_kernel_matches_plain(card, n, k, c, kw):
     assert torch.equal(counts.cpu(), kernels.weighted_bincount_plain(x, (w != 0).to(torch.float32), c))
 
 
+def _single_block_max() -> int:
+    fn = _build.library("weighted_bincount").tm_weighted_bincount_single_block_max
+    fn.restype = ctypes.c_longlong
+    return int(fn())
+
+
+def _weighted_matches_plain(x, w, c) -> None:
+    got = kernels.weighted_bincount(x, w, c)
+    torch.cuda.synchronize()
+    want = kernels.weighted_bincount_plain(x.cpu(), w.cpu(), c)
+    torch.testing.assert_close(got.cpu(), want, rtol=WEIGHTED_RTOL, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("side", [-1, 0, 1, 2])
+@pytest.mark.parametrize("k, c", [(3, 15), (3, 1000), (3, 8192), (1, 65536)])  # each scatter mode
+def test_weighted_bincount_on_both_sides_of_the_single_block_limit(card, side, k, c):
+    n = _single_block_max() + side
+    x, w = _weighted(n, k, c, seed=n + k + c, nonfinite=True)
+    _weighted_matches_plain(x.to(card), w.to(card), c)
+    counts = (w != 0).to(torch.float32)
+    got = kernels.weighted_bincount(x.to(card), counts.to(card), c)
+    assert torch.equal(got.cpu(), kernels.weighted_bincount_plain(x, counts, c))
+
+
+@pytest.mark.parametrize("c", [1, 15, 1000, 8192, 65536])
+@pytest.mark.parametrize("n", [500, 1 << 18])
+def test_weighted_bincount_bin_counts(card, n, c):
+    x, w = _weighted(n, 3, c, seed=n + c)
+    _weighted_matches_plain(x.to(card), w.to(card), c)
+
+
+@pytest.mark.parametrize("n", [5000, 1 << 18])
+@pytest.mark.parametrize("c", [15, 2000, 65536])
+def test_weighted_bincount_nonfinite_on_the_grid_and_in_one_block(card, n, c):
+    x, w = _weighted(n, 3, c, seed=n + c + 1, nonfinite=True)
+    w[1, 7] = float("-inf")
+    _weighted_matches_plain(x.to(card), w.to(card), c)
+
+
+def test_weighted_bincount_scratch_resets_between_calls(card):
+    """Back-to-back calls of other shapes on one stream, each equal to the plain version:
+    every call leaves its cached scratch zero for the next."""
+    shapes = [(1 << 18, 3, 15), (1 << 18, 1, 8192), (700, 3, 15), (1 << 17, 3, 1000), (1 << 18, 3, 15),
+              (1 << 16, 2, 65536), (1 << 18, 3, 8192)]
+    cases = [(_weighted(n, k, c, seed=i, nonfinite=i % 2 == 0), c) for i, (n, k, c) in enumerate(shapes)]
+    got = [kernels.weighted_bincount(x.to(card), w.to(card), c) for (x, w), c in cases]
+    torch.cuda.synchronize()
+    for out, ((x, w), c) in zip(got, cases):
+        torch.testing.assert_close(out.cpu(), kernels.weighted_bincount_plain(x, w, c), rtol=WEIGHTED_RTOL, atol=0,
+                                   equal_nan=True)
+
+
+def test_weighted_bincount_on_two_streams_interleaved(card):
+    """Each stream has its own scratch: calls queued alternately on two streams, which
+    may run at once, each equal to the plain version."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = []
+    for i, c in enumerate([15, 1000, 8192, 15, 1000, 8192]):
+        x, w = _weighted(1 << 18, 3, c, seed=c + i)
+        cases.append((x.to(card), w.to(card), c))
+    torch.cuda.synchronize()
+    outs = []
+    for i, (x, w, c) in enumerate(cases * 3):
+        stream = streams[i % 2]
+        with torch.cuda.stream(stream):
+            outs.append((kernels.weighted_bincount(x, w, c), x, w, c))
+    torch.cuda.synchronize()
+    assert len({key for key in kernels._WEIGHTED_SCRATCH if key[1] in {s.cuda_stream for s in streams}}) == 2
+    for out, x, w, c in outs:
+        torch.testing.assert_close(out.cpu(), kernels.weighted_bincount_plain(x.cpu(), w.cpu(), c),
+                                   rtol=WEIGHTED_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n", [500, 1 << 18])
+def test_one_weighted_bincount_call_runs_one_device_kernel(card, n):
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w = _weighted(n, 3, 15, seed=4)
+    x, w = x.to(card), w.to(card)
+    kernels.weighted_bincount(x, w, 15)  # the scratch exists
+    torch.cuda.synchronize()
+    traces = []
+    for _ in range(5):  # a trace may drop a kernel but never adds one: the fullest of five
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernels.weighted_bincount(x, w, 15)
+            torch.cuda.synchronize()
+        traces.append({e.key: e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
+    ran = max(traces, key=lambda names: sum(names.values()))
+    assert sum(ran.values()) == 1 and all("weighted_bincount_kernel" in name for name in ran), ran
+
+
 @pytest.mark.parametrize("n, c", [(0, 5), (1000, 1), (1 << 16, 100), (1 << 16, 6980), (1 << 16, 12288),
                                   (1 << 16, 12289), (1 << 16, 1 << 16)])
 def test_bincount_kernel_matches_plain(card, n, c):
@@ -241,6 +335,52 @@ def test_ssim_moments_kernel_matches_plain(card, planes, hp, wp, wh, ww):
     torch.cuda.synchronize()
     assert got.device.type == "cuda" and got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), kernels.ssim_moments_plain(p, t, wh, ww), atol=MOMENTS_ATOL, rtol=0)
+
+
+def _planes(planes: int, hp: int, wp: int, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(planes, hp, wp, generator=g), torch.rand(planes, hp, wp, generator=g)
+
+
+@pytest.mark.parametrize("wp", [2052, 2050, 2049])  # rows 16-, 8- and 4-byte aligned
+def test_ssim_moments_kernel_takes_any_row_alignment(card, wp):
+    p, t = _planes(2, 40, wp, seed=wp)
+    w = _gaussian(11, 1.5)[0]
+    got = kernels.ssim_moments(p.to(card), t.to(card), w.to(card), w.to(card))
+    torch.testing.assert_close(got.cpu(), kernels.ssim_moments_plain(p, t, w, w), atol=MOMENTS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "planes, hp, wp",
+    [(1, 69, 253),  # ragged tiles in both directions (53 x 243 outputs), fewer tiles than SMs
+     (3, 26, 126),  # exactly one 16 x 116 tile per plane
+     (12, 349, 520),  # an MS-SSIM scale: many tiles, more than the card holds at once
+     (3, 200, 700),  # 71 tiles per plane
+     (5, 77, 101)],  # odd widths: 4-byte copies
+)
+def test_ssim_moments_kernel_tiles(card, planes, hp, wp):
+    p, t = _planes(planes, hp, wp, seed=hp + wp)
+    p[-1, hp - 1, wp - 1] = float("nan")  # the last pixel: only the last output reads it
+    w = _gaussian(11, 1.5)[0]
+    got = kernels.ssim_moments(p.to(card), t.to(card), w.to(card), w.to(card)).cpu()
+    want = kernels.ssim_moments_plain(p, t, w, w)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, atol=MOMENTS_ATOL, rtol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("wh, ww", [(("gauss", 71, 10.0), ("gauss", 71, 10.0)),  # 192-float pitch
+                                    (("gauss", 5, 1.0), ("gauss", 151, 21.5)),  # 256-float pitch
+                                    (("gauss", 3, 1.0), ("uniform", 231, 0)),  # two columns chunks
+                                    (("gauss", 11, 1.5), ("gauss", 23, 3.0)),  # 104 columns a tile
+                                    (("gauss", 33, 5.0), ("uniform", 7, 0))])  # three rows bands
+def test_ssim_moments_kernel_large_windows_with_nan(card, wh, ww):
+    p, t = _planes(2, 230, 420, seed=7)
+    t[1, 120, 300] = float("nan")
+    wh, ww = _window(*wh), _window(*ww)
+    got = kernels.ssim_moments(p.to(card), t.to(card), wh.to(card), ww.to(card)).cpu()
+    want = kernels.ssim_moments_plain(p, t, wh, ww)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, atol=MOMENTS_ATOL, rtol=0, equal_nan=True)
 
 
 def test_ssim_moments_kernel_spreads_a_nan_as_the_plain_version(card):

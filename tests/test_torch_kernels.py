@@ -137,7 +137,7 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     }
 
 
-@pytest.mark.parametrize("which", ["confusion_matrix", "binned_curve_counts"])
+@pytest.mark.parametrize("which", ["confusion_matrix", "binned_curve_counts", "weighted_bincount", "ssim_moments"])
 def test_wrappers_raise_on_other_devices(which):
     meta = torch.empty(8, dtype=torch.int32, device="meta")
     cpu = torch.zeros(8, dtype=torch.int32)
@@ -146,12 +146,71 @@ def test_wrappers_raise_on_other_devices(which):
             kernels.confusion_matrix(meta, meta, meta.bool(), 3)
         with pytest.raises(ValueError, match="one device"):
             kernels.confusion_matrix(meta, cpu, cpu.bool(), 3)
-    else:
+    elif which == "binned_curve_counts":
         thr = torch.empty(4, device="meta")
         with pytest.raises(ValueError, match="CUDA or CPU"):
             kernels.binned_curve_counts(meta.float(), meta, meta.bool(), thr)
         with pytest.raises(ValueError, match="one device"):
             kernels.binned_curve_counts(cpu.float(), cpu, cpu.bool(), thr)
+    elif which == "weighted_bincount":
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            kernels.weighted_bincount(meta, meta.float().reshape(1, 8), 3)
+        with pytest.raises(ValueError, match="one device"):
+            kernels.weighted_bincount(cpu, meta.float().reshape(1, 8), 3)
+    else:
+        planes, window = torch.empty(2, 9, 9, device="meta"), torch.empty(3, device="meta")
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            kernels.ssim_moments(planes, planes, window, window)
+        with pytest.raises(ValueError, match="one device"):
+            kernels.ssim_moments(planes, planes, torch.ones(3) / 3, window)
+
+
+SSIM_BAD_SHAPES = {
+    "planes_not_3d": ((12, 13), (12, 13), 3, 3),
+    "target_shape_differs": ((2, 12, 13), (2, 12, 14), 3, 3),
+    "empty_window": ((2, 12, 13), (2, 12, 13), 0, 3),
+    "window_wider_than_the_plane": ((2, 12, 13), (2, 12, 13), 3, 14),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SSIM_BAD_SHAPES))
+def test_ssim_moments_rejects_bad_shapes(case):
+    p_shape, t_shape, kh, kw = SSIM_BAD_SHAPES[case]
+    with pytest.raises(ValueError, match="Expected|larger than"):
+        kernels.ssim_moments(torch.rand(p_shape), torch.rand(t_shape), torch.ones(kh) / 3, torch.ones(kw) / 3)
+
+
+@pytest.mark.parametrize("layout", ["float64_planes", "transposed_planes", "row_vector_windows", "float64_windows"])
+def test_ssim_moments_takes_any_dtype_and_layout(layout):
+    g = torch.Generator().manual_seed(3)
+    p, t = torch.rand(2, 20, 17, generator=g), torch.rand(2, 20, 17, generator=g)
+    wh, ww = torch.rand(5, generator=g), torch.rand(3, generator=g)
+    want = kernels.ssim_moments_plain(p, t, wh, ww)
+    args = {
+        "float64_planes": (p.double(), t.double(), wh, ww),
+        "transposed_planes": (p.transpose(1, 2).contiguous().transpose(1, 2), t, wh, ww),
+        "row_vector_windows": (p, t, wh[None, :], ww[None, :]),
+        "float64_windows": (p, t, wh.double(), ww.double()),
+    }[layout]
+    got = kernels.ssim_moments(*args)
+    assert got.dtype == torch.float32 and got.shape == (2, 5, 16, 15)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("edit", ["source", "header", "flags", "other_source"])
+def test_library_name_hashes_its_source_the_headers_and_the_flags(tmp_path, monkeypatch, edit):
+    for f in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    assert list(tmp_path.glob("*.cuh"))
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._library_path("ssim_moments")
+    if edit == "flags":
+        monkeypatch.setattr(_build, "NVCC_FLAGS", [*_build.NVCC_FLAGS, "-lineinfo"])
+    else:
+        name = {"source": "ssim_moments.cu", "other_source": "bincount.cu"}.get(edit)
+        target = tmp_path / name if name else next(tmp_path.glob("*.cuh"))
+        target.write_bytes(target.read_bytes() + b"\n// edited\n")
+    assert (_build._library_path("ssim_moments") == before) == (edit == "other_source")
 
 
 def test_build_targets_hopper_and_raises_without_nvcc(monkeypatch):

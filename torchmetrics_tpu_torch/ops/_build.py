@@ -41,7 +41,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path; its hash covers the source, the shared headers and the flags."""
+    digest = hashlib.sha256(
+        b"".join(f.read_bytes() for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -25,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -64,9 +66,7 @@ extern "C" {
 // the launch.
 int tm_bincount(const void* x, long long n, int c, void* out, void* stream) {
   if (n <= 0 || c <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = tmk::sm_count();
   const long long needed = (n + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xi = static_cast<const int*>(x);

@@ -29,6 +29,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -91,9 +93,7 @@ extern "C" {
 int tm_binned_curve_counts(const void* scores, const void* labels, const void* valid, long long n,
                            const void* thresholds, int num_thresholds, void* out, void* stream) {
   if (n <= 0 || num_thresholds <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = tmk::sm_count();
   const long long tiles = (n + kTile - 1) / kTile;
   const int blocks = static_cast<int>(tiles < 4LL * sms ? tiles : 4LL * sms);
   binned_curve_counts_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

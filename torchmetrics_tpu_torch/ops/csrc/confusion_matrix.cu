@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "device_cache.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -76,9 +78,7 @@ extern "C" {
 int tm_confusion_matrix(const void* preds, const void* target, const void* valid, long long n,
                         int num_classes, void* out, void* stream) {
   if (n <= 0) return 0;
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int sms = tmk::sm_count();
   const long long needed = (n + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const int*>(preds);

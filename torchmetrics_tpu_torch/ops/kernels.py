@@ -61,7 +61,7 @@ _ARGTYPES = {
     "weighted_bincount": (
         "tm_weighted_bincount",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p],
     ),
     "bincount": ("tm_bincount", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "ssim_moments": (
@@ -84,15 +84,28 @@ def _entry_point(name: str) -> Callable[..., int]:
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch on the current stream. The caller's tensors may be freed right after:
-    PyTorch's allocator hands their memory only to work queued later on that stream."""
+# the current stream's raw handle, without building a torch.cuda.Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)
+
+
+def _launch(name: str, index: int, *args, stream: Optional[int] = None) -> None:
+    """Launch on CUDA device ``index``'s current stream (or on ``stream``, its raw
+    handle). The caller's tensors may be freed right after: PyTorch's allocator hands
+    their memory only to work queued later on that stream."""
     fn = _entry_point(name)
-    if device.index is not None and device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if stream is None:
+        stream = _raw_stream(index)
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
     else:
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        rc = fn(*args, stream)
     if rc != 0:
         message = _build.library(name).tm_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {message} ({rc})")
@@ -101,6 +114,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def _on_card(*tensors: Tensor) -> bool:
     """True for tensors on one CUDA device, False for CPU tensors; raises on anything else."""
+    index = tensors[0].get_device()  # -1 on the CPU
+    if index >= 0 and all(t.is_cuda and t.get_device() == index for t in tensors):
+        return True
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"Expected all inputs on one device, got {sorted(str(d) for d in devices)}")
@@ -145,7 +161,7 @@ def confusion_matrix(preds: Tensor, target: Tensor, valid: Tensor, num_classes: 
     out = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=preds.device)
     if n:
         _launch(
-            "confusion_matrix", preds.device,
+            "confusion_matrix", preds.get_device(),
             preds.data_ptr(), target.data_ptr(), mask.data_ptr(), n, num_classes, out.data_ptr(),
         )
     return out
@@ -190,7 +206,7 @@ def binned_curve_counts(scores: Tensor, labels: Tensor, valid: Tensor, threshold
     out = torch.zeros((thr.numel(), 2), dtype=torch.int32, device=scores.device)
     if n and thr.numel():
         _launch(
-            "binned_curve_counts", scores.device,
+            "binned_curve_counts", scores.get_device(),
             scores.data_ptr(), labels.data_ptr(), mask.data_ptr(), n, thr.data_ptr(), thr.numel(), out.data_ptr(),
         )
     return out
@@ -220,23 +236,50 @@ def weighted_bincount_plain(x: Tensor, weights: Tensor, minlength: int) -> Tenso
     return torch.where(poisoned, torch.full_like(sums, float("nan")), sums).to(torch.float32)
 
 
+# The weighted bincount's scratch (float64 sums, per-row trackers, a ticket), zeroed
+# once and left zero by every launch, one per (device index, raw stream): launches on
+# one stream run in order and may share it, launches on two streams may not.
+_WEIGHTED_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _weighted_scratch(index: int, stream: int, k: int, c: int) -> Tensor:
+    need = k * c * 8 + 2 * k * 4 + 4  # tm_weighted_bincount_scratch_bytes
+    scratch = _WEIGHTED_SCRATCH.get((index, stream))
+    if scratch is None or scratch.numel() < need:
+        # allocated while `stream` is current, so the allocator ties it to that stream
+        scratch = torch.zeros(max(need, 4096), dtype=torch.uint8, device=torch.device("cuda", index))
+        _WEIGHTED_SCRATCH[(index, stream)] = scratch
+    return scratch
+
+
 def weighted_bincount(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
-    """float32 [K, C] weighted bincounts of the int indices ``x`` [N] by ``weights`` [K, N]."""
+    """float32 [K, C] weighted bincounts of the int indices ``x`` [N] by ``weights`` [K, N].
+
+    On the card: one kernel launch and one allocation (the output) per call.
+    """
     if not _on_card(x, weights):
         return weighted_bincount_plain(x, weights, minlength)
-    x = x.reshape(-1).to(torch.int32).contiguous()
-    w = weights.to(torch.float32).contiguous()
+    if x.dim() != 1:
+        x = x.reshape(-1)
+    if x.dtype != torch.int32:
+        x = x.to(torch.int32)
+    if not x.is_contiguous():
+        x = x.contiguous()
+    w = weights if weights.dtype == torch.float32 else weights.to(torch.float32)
+    if not w.is_contiguous():
+        w = w.contiguous()
     if w.ndim != 2 or w.shape[1] != x.numel():
         raise ValueError(f"Expected weights of shape [K, {x.numel()}], got {tuple(w.shape)}")
     k, n = w.shape
     if n == 0 or k == 0 or minlength == 0:
-        return torch.zeros((k, minlength), dtype=torch.float32, device=w.device)
-    sums = torch.zeros((k, minlength), dtype=torch.float64, device=w.device)
-    nonfinite = torch.zeros(k + k * minlength, dtype=torch.int32, device=w.device)
-    out = torch.empty((k, minlength), dtype=torch.float32, device=w.device)
+        return w.new_zeros((k, minlength))
+    out = w.new_empty((k, minlength))
+    index = w.get_device()
+    stream = _raw_stream(index)
+    scratch = _weighted_scratch(index, stream, k, minlength)
     _launch(
-        "weighted_bincount", w.device,
-        x.data_ptr(), w.data_ptr(), n, k, minlength, sums.data_ptr(), nonfinite.data_ptr(), out.data_ptr(),
+        "weighted_bincount", index,
+        x.data_ptr(), w.data_ptr(), n, k, minlength, scratch.data_ptr(), out.data_ptr(), stream=stream,
     )
     return out
 
@@ -264,7 +307,7 @@ def bincount(x: Tensor, valid: Optional[Tensor], minlength: int) -> Tensor:
     x = x.reshape(-1).to(torch.int32).contiguous()
     out = torch.zeros(minlength, dtype=torch.int32, device=x.device)
     if x.numel() and minlength:
-        _launch("bincount", x.device, x.data_ptr(), x.numel(), minlength, out.data_ptr())
+        _launch("bincount", x.get_device(), x.data_ptr(), x.numel(), minlength, out.data_ptr())
     return out
 
 
@@ -286,13 +329,15 @@ def _separable_window_plain(planes: Tensor, window_h: Tensor, window_w: Tensor) 
 
 
 def _ssim_moments_shapes(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tensor) -> None:
-    if preds.ndim != 3 or preds.shape != target.shape:
+    shape = preds.shape
+    if len(shape) != 3 or shape != target.shape:
         raise ValueError(
             f"Expected preds and target of one shape [P, Hp, Wp], got {tuple(preds.shape)} and {tuple(target.shape)}"
         )
-    if window_h.numel() < 1 or window_w.numel() < 1:
+    kh, kw = window_h.numel(), window_w.numel()
+    if kh < 1 or kw < 1:
         raise ValueError("Expected non-empty windows")
-    if preds.shape[1] < window_h.numel() or preds.shape[2] < window_w.numel():
+    if shape[1] < kh or shape[2] < kw:
         raise ValueError(
             f"The window {window_h.numel()}x{window_w.numel()} is larger than the padded planes"
             f" {preds.shape[1]}x{preds.shape[2]}"
@@ -332,10 +377,10 @@ def _ssim_moments_forward(preds: Tensor, target: Tensor, window_h: Tensor, windo
         return ssim_moments_plain(preds, target, window_h, window_w)
     p_planes, hp, wp = preds.shape
     kh, kw = window_h.numel(), window_w.numel()
-    out = torch.empty((p_planes, 5, hp - kh + 1, wp - kw + 1), dtype=torch.float32, device=preds.device)
+    out = preds.new_empty((p_planes, 5, hp - kh + 1, wp - kw + 1))
     if p_planes:
         _launch(
-            "ssim_moments", preds.device,
+            "ssim_moments", preds.get_device(),
             preds.data_ptr(), target.data_ptr(), window_h.data_ptr(), window_w.data_ptr(), p_planes, hp, wp, kh, kw,
             out.data_ptr(),
         )
@@ -370,9 +415,17 @@ def ssim_moments(preds: Tensor, target: Tensor, window_h: Tensor, window_w: Tens
     ``preds`` and ``target``, not to the windows.
     """
     _ssim_moments_shapes(preds, target, window_h, window_w)
-    return _SsimMoments.apply(
-        preds.to(torch.float32).contiguous(),
-        target.to(torch.float32).contiguous(),
-        window_h.reshape(-1).to(torch.float32).contiguous(),
-        window_w.reshape(-1).to(torch.float32).contiguous(),
+    args = (
+        _contiguous_float32(preds), _contiguous_float32(target),
+        _contiguous_float32(window_h if window_h.dim() == 1 else window_h.reshape(-1)),
+        _contiguous_float32(window_w if window_w.dim() == 1 else window_w.reshape(-1)),
     )
+    if torch.is_grad_enabled() and (args[0].requires_grad or args[1].requires_grad):
+        return _SsimMoments.apply(*args)
+    return _ssim_moments_forward(*args)  # nothing to differentiate: skip the autograd node
+
+
+def _contiguous_float32(a: Tensor) -> Tensor:
+    if a.dtype is not torch.float32:
+        a = a.to(torch.float32)
+    return a if a.is_contiguous() else a.contiguous()
