@@ -11,6 +11,10 @@ suite's JAX conftest:
 from __future__ import annotations
 
 import ctypes
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -37,26 +41,207 @@ def card() -> torch.device:
     return torch.device("cuda")
 
 
-def _labels(n: int, c: int, seed: int, invalid: float = 0.2):
-    """CPU int32 preds/target with some out-of-range and negative values, and a mask."""
+def _labels(n: int, c: int, seed: int, invalid: float = 0.2, dtypes: str = "int32"):
+    """CPU preds/target with some out-of-range and negative values, and a mask. ``dtypes``
+    makes preds, target or both int64 ("int64_preds", "int64_target", "int64"); int64
+    labels also carry multiples of 2^32, which the kernel drops as JAX's int32 does."""
     g = torch.Generator().manual_seed(seed)
     preds = torch.randint(-2, c + 2, (n,), generator=g, dtype=torch.int32)
     target = torch.randint(-1, c + 1, (n,), generator=g, dtype=torch.int32)
     valid = torch.rand(n, generator=g) >= invalid
+    if dtypes in ("int64", "int64_preds"):
+        preds = preds.long() + (torch.randint(-2, 3, (n,), generator=g) << 32)
+    if dtypes in ("int64", "int64_target"):
+        target = target.long() + (torch.randint(-2, 3, (n,), generator=g) << 32)
     return preds, target, valid
 
 
-@pytest.mark.parametrize(
-    "n, c, invalid",
-    [(0, 4, 0.2), (300, 5, 1.0), (1500, 130, 0.2), (7, 3, 0.2), (1 << 16, 10, 0.2), (1000, 2, 0.2),
-     (20000, 110, 0.2), (20000, 111, 0.2), (50000, 1000, 0.2)],
-)
-def test_confusion_matrix_kernel_matches_plain(card, n, c, invalid):
-    preds, target, valid = _labels(n, c, seed=n + c, invalid=invalid)
+def _dirty_allocator(card: torch.device, c: int) -> None:
+    """Leave a freed block of junk in the caching allocator where the next [C, C] output
+    will likely land, so that a cell the kernel left unwritten would show."""
+    junk = torch.full((max(c * c, 1),), 0x5A5A5A5A, dtype=torch.int32, device=card)
+    del junk
+
+
+def _traced_calls(kernel: str, cases: list) -> list:
+    """For each case, the device kernels (name -> count) of one call of ``kernel`` on the
+    card: the fullest of five torch.profiler traces of one call each (a trace may drop a
+    kernel but never adds one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card, result = torch.device("cuda"), []
+    for case in cases:
+        if kernel == "confusion_matrix":
+            n, c, dtypes = case
+            preds, target, valid = (a.to(card) for a in _labels(n, c, seed=4, dtypes=dtypes))
+            call = lambda: kernels.confusion_matrix(preds, target, valid, c)  # noqa: E731
+        else:
+            x, w = (a.to(card) for a in _weighted(case, 3, 15, seed=4))
+            call = lambda: kernels.weighted_bincount(x, w, 15)  # noqa: E731
+        call()  # the scratch exists
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            traces.append({e.key: e.count for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
+        result.append(max(traces, key=lambda names: sum(names.values())))
+    return result
+
+
+def _traced_in_a_new_process(kernel: str, cases: list) -> list:
+    """``_traced_calls`` run in a new Python process. A process that has run many
+    torch.profiler traces and kernels may record no device event in its later traces, so
+    the count is taken where the profiler starts fresh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._traced_calls(sys.argv[3], json.loads(sys.argv[4]))))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), kernel, json.dumps(cases)],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+# each side of every mode's limit: one block up to N = 8192; per-lane copies up to
+# C = 19, one copy per block up to C = 110, the output zeroed before counting above
+CONFMAT_SHAPES = [
+    (0, 4, 0.2), (300, 5, 1.0), (1500, 130, 0.2), (7, 3, 0.2), (1 << 16, 10, 0.2), (1000, 2, 0.2),
+    (20000, 110, 0.2), (20000, 111, 0.2), (50000, 1000, 0.2),
+    (0, 1, 0.2), (1, 1, 0.0), (1, 2, 0.0), (0, 1000, 0.2), (1, 1000, 0.0), (500, 1000, 0.2),
+    (8192, 19, 0.2), (8193, 19, 0.2), (8192, 20, 0.2), (8193, 20, 0.2), (8192, 110, 0.2), (8193, 110, 0.2),
+    (8192, 111, 0.2), (8193, 111, 0.2), (1 << 18, 2, 0.2), (1 << 18, 1, 0.2), (1 << 20, 10, 0.2),
+    (1 << 20, 100, 0.2), (1 << 20, 1000, 0.2),
+]
+
+
+@pytest.mark.parametrize("dtypes", ["int32", "int64", "int64_preds", "int64_target"])
+@pytest.mark.parametrize("n, c, invalid", CONFMAT_SHAPES)
+def test_confusion_matrix_kernel_matches_plain(card, n, c, invalid, dtypes):
+    preds, target, valid = _labels(n, c, seed=n + c, invalid=invalid, dtypes=dtypes)
+    _dirty_allocator(card, c)
     got = kernels.confusion_matrix(preds.to(card), target.to(card), valid.to(card), c)
     torch.cuda.synchronize()
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), kernels.confusion_matrix_plain(preds, target, valid, c))
+
+
+CONFMAT_LAYOUTS = {
+    "uint8_mask": lambda p, t, v: (p, t, v.to(torch.uint8)),
+    "int64_mask_with_high_bits": lambda p, t, v: (p, t, v.long() + (torch.arange(v.numel()) % 3 << 32)),
+    "int32_mask": lambda p, t, v: (p, t, v.int() * 7),
+    "strided_labels": lambda p, t, v: (torch.stack([p, p], dim=1)[:, 0], t.repeat(2)[::2], v),
+    "strided_mask": lambda p, t, v: (p, t, torch.stack([v, ~v], dim=1)[:, 0]),
+    "2d_labels_and_mask": lambda p, t, v: (p.reshape(-1, 8), t.reshape(8, -1), v.reshape(4, -1)),
+    "int16_labels": lambda p, t, v: (p.to(torch.int16), t.to(torch.int16), v),
+    "uint8_labels": lambda p, t, v: (p.clamp(min=0).to(torch.uint8), t.clamp(min=0).to(torch.uint8), v),
+    "bool_labels": lambda p, t, v: (p > 2, t > 2, v),
+}
+
+
+@pytest.mark.parametrize("n, c", [(4096, 5), (1 << 16, 10), (1 << 16, 111)])
+@pytest.mark.parametrize("layout", sorted(CONFMAT_LAYOUTS))
+def test_confusion_matrix_kernel_takes_masks_and_layouts(card, layout, n, c):
+    preds, target, valid = CONFMAT_LAYOUTS[layout](*_labels(n, c, seed=c, dtypes="int64_preds"))
+    got = kernels.confusion_matrix(preds.to(card), target.to(card), valid.to(card), c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.confusion_matrix_plain(preds, target, valid, c))
+
+
+@pytest.mark.parametrize("n, c", [(0, 111), (500, 1000), (1 << 18, 111), (1 << 18, 1000), (3, 4096)])
+def test_confusion_matrix_zeroes_a_large_output(card, n, c):
+    """The cooperative launch zeroes an output beyond shared memory inside the kernel:
+    every cell of an output that the allocator filled with junk is written."""
+    preds, target, valid = _labels(n, c, seed=n + c, dtypes="int64_preds")
+    _dirty_allocator(card, c)
+    got = kernels.confusion_matrix(preds.to(card), target.to(card), valid.to(card), c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.confusion_matrix_plain(preds, target, valid, c))
+
+
+def test_confusion_matrix_calls_of_other_shapes_share_the_scratch(card):
+    """Back-to-back calls of other shapes and modes on one stream, each equal to the
+    plain version: every grid launch writes the slots it reads, whatever an earlier call
+    left in the cached scratch."""
+    shapes = [(1 << 18, 2), (1 << 18, 110), (700, 10), (1 << 18, 19), (1 << 17, 1000), (1 << 18, 2), (9000, 110),
+              (1 << 18, 20), (8193, 1)]
+    cases = [(_labels(n, c, seed=i, dtypes=("int32", "int64")[i % 2]), c) for i, (n, c) in enumerate(shapes)]
+    got = [kernels.confusion_matrix(p.to(card), t.to(card), v.to(card), c) for (p, t, v), c in cases]
+    torch.cuda.synchronize()
+    for out, ((p, t, v), c) in zip(got, cases):
+        assert torch.equal(out.cpu(), kernels.confusion_matrix_plain(p, t, v, c))
+
+
+def test_confusion_matrix_refuses_a_scratch_too_small_for_its_grid(card):
+    """The C entry point checks the slots' size that the wrapper computes: a null or a
+    short scratch is refused before any launch, the exact size counts."""
+    n, c = 1 << 16, 10
+    preds, target, valid = (a.to(card) for a in _labels(n, c, seed=3))
+    need = kernels._confusion_slots_bytes(torch.cuda.current_device(), n, c)
+    scratch = torch.empty(need, dtype=torch.uint8, device=card)
+    out = torch.empty((c, c), dtype=torch.int32, device=card)
+    fn = kernels._entry_point("confusion_matrix")
+    stream = kernels._raw_stream(torch.cuda.current_device())
+
+    def call(slots, nbytes):
+        return fn(preds.data_ptr(), 4, target.data_ptr(), 4, valid.data_ptr(), n, c, slots, nbytes, out.data_ptr(),
+                  stream)
+
+    assert need > 0 and call(None, 0) != 0 and call(scratch.data_ptr(), need - 4) != 0
+    assert call(scratch.data_ptr(), need) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), kernels.confusion_matrix_plain(preds.cpu(), target.cpu(), valid.cpu(), c))
+
+
+def test_confusion_matrix_on_two_streams_interleaved(card):
+    """Each stream has its own scratch: calls queued alternately on two streams, which
+    may run at once, each equal to the plain version."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = []
+    for i, c in enumerate([2, 10, 110, 1000, 2, 19]):
+        p, t, v = _labels(1 << 18, c, seed=c + i, dtypes="int64_preds")
+        cases.append((p.to(card), t.to(card), v.to(card), c))
+    torch.cuda.synchronize()
+    outs = []
+    for i, (p, t, v, c) in enumerate(cases * 3):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append((kernels.confusion_matrix(p, t, v, c), p, t, v, c))
+    torch.cuda.synchronize()
+    assert len({key for key in kernels._CONFUSION_SCRATCH if key[1] in {s.cuda_stream for s in streams}}) == 2
+    for out, p, t, v, c in outs:
+        assert torch.equal(out.cpu(), kernels.confusion_matrix_plain(p.cpu(), t.cpu(), v.cpu(), c))
+
+
+CONFMAT_TRACED = [(500, 1000, "int64_preds"), (1 << 18, 2, "int32"), (1 << 20, 10, "int32"), (8192, 100, "int64"),
+                  (1 << 20, 1000, "int32")]
+
+
+@pytest.fixture(scope="module")
+def confusion_matrix_traces() -> list:
+    return _traced_in_a_new_process("confusion_matrix", CONFMAT_TRACED)
+
+
+@pytest.mark.parametrize("case", range(len(CONFMAT_TRACED)), ids=[f"{n}-{c}-{d}" for n, c, d in CONFMAT_TRACED])
+def test_one_confusion_matrix_call_runs_one_device_kernel(card, confusion_matrix_traces, case):
+    """One kernel per call, nothing else: no cast, no fill, no memset."""
+    ran = confusion_matrix_traces[case]
+    kernel_names = [name for name in ran if "confusion_matrix" in name]
+    assert len(kernel_names) == 1 and ran[kernel_names[0]] == 1, ran
+    assert sum(ran.values()) == 1, ran
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_confusion_matrix(card, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(kernels, "confusion_matrix_plain", refuse)
+    for n, c in [(0, 3), (100, 2), (1 << 16, 50), (500, 1000)]:
+        preds, target, valid = (a.to(card) for a in _labels(n, c, seed=5, dtypes="int64_preds"))
+        kernels.confusion_matrix(preds, target, valid, c)
+    torch.cuda.synchronize()
 
 
 def _curve(n: int, t: int, seed: int, unsorted: bool = False, ties: bool = False, nan: bool = False,
@@ -224,22 +409,17 @@ def test_weighted_bincount_on_two_streams_interleaved(card):
                                    rtol=WEIGHTED_RTOL, atol=0)
 
 
-@pytest.mark.parametrize("n", [500, 1 << 18])
-def test_one_weighted_bincount_call_runs_one_device_kernel(card, n):
-    from torch.profiler import ProfilerActivity, profile
+WEIGHTED_TRACED = [500, 1 << 18]
 
-    x, w = _weighted(n, 3, 15, seed=4)
-    x, w = x.to(card), w.to(card)
-    kernels.weighted_bincount(x, w, 15)  # the scratch exists
-    torch.cuda.synchronize()
-    traces = []
-    for _ in range(5):  # a trace may drop a kernel but never adds one: the fullest of five
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            kernels.weighted_bincount(x, w, 15)
-            torch.cuda.synchronize()
-        traces.append({e.key: e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
-    ran = max(traces, key=lambda names: sum(names.values()))
+
+@pytest.fixture(scope="module")
+def weighted_bincount_traces() -> list:
+    return _traced_in_a_new_process("weighted_bincount", WEIGHTED_TRACED)
+
+
+@pytest.mark.parametrize("n", WEIGHTED_TRACED)
+def test_one_weighted_bincount_call_runs_one_device_kernel(card, weighted_bincount_traces, n):
+    ran = weighted_bincount_traces[WEIGHTED_TRACED.index(n)]
     assert sum(ran.values()) == 1 and all("weighted_bincount_kernel" in name for name in ran), ran
 
 

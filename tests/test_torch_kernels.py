@@ -4,7 +4,9 @@ On the CPU each wrapper runs its plain PyTorch version; these tests hold that pl
 version against the Pallas kernel in interpret mode and against the XLA path at the
 kernel's call site, exactly, on the edge cases: empty input, every sample invalid,
 out-of-range and negative labels, unsorted thresholds, scores equal to a threshold,
-NaN scores, and class counts that are not a multiple of 128. The CUDA kernels
+NaN scores, class counts that are not a multiple of 128, and int64 labels beyond the
+int32 range (JAX takes them by their low 32 bits, and so do the plain versions). The
+confusion-matrix wrapper's refusals are tested here too. The CUDA kernels
 themselves run only on a card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -22,7 +24,12 @@ from torchmetrics_tpu.functional.classification.confusion_matrix import _masked_
 from torchmetrics_tpu.functional.classification.precision_recall_curve import (  # noqa: E402
     _binary_precision_recall_curve_update,
 )
-from torchmetrics_tpu.ops.pallas_kernels import binned_curve_counts_pallas, confusion_matrix_pallas  # noqa: E402
+from torchmetrics_tpu.ops.pallas_kernels import (  # noqa: E402
+    bincount_pallas,
+    binned_curve_counts_pallas,
+    confusion_matrix_pallas,
+    weighted_bincount_pallas,
+)
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds  # noqa: E402
 from torchmetrics_tpu_torch.ops import _build, kernels  # noqa: E402
 
@@ -61,6 +68,137 @@ def test_confusion_matrix_plain_matches_pallas_and_xla(case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(pallas).astype(np.int32))
     xla = _masked_confmat(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(valid), c)
     np.testing.assert_array_equal(got.numpy(), np.asarray(xla))
+
+
+def _wide(rng, values: np.ndarray) -> np.ndarray:
+    """int64 ``values`` plus multiples of 2^32, and the two int64 values next to the int32
+    range's ends: JAX (64-bit types off) keeps the low 32 bits of each."""
+    wide = values.astype(np.int64) + rng.choice([-2, -1, 0, 1, 2], values.shape[0]).astype(np.int64) * (1 << 32)
+    if wide.shape[0] >= 2:
+        wide[:2] = [1 << 31, -(1 << 31) - 1]  # int32 -2^31 and 2^31 - 1: outside any [0, C)
+    return wide
+
+
+def _int64_mask(rng, n: int) -> np.ndarray:
+    """An int64 mask of 0 and 1 plus multiples of 2^32: non-zero entries that are 0 in
+    int32. (The JAX confusion-matrix kernel weights a pair by its mask's value, the port
+    counts a pair whose mask is not 0: they agree on masks of 0 and 1, and every caller
+    passes a bool mask.)"""
+    return (rng.randint(0, 2, n) + rng.choice([-1, 0, 1, 3], n) * (1 << 32)).astype(np.int64)
+
+
+def _wide_cases(kernel: str, n: int = 2000, c: int = 7):
+    """(port result, JAX kernel in interpret mode) on int64 labels at +-2^32 + k."""
+    rng = np.random.RandomState(hash(kernel) % 1000)
+    if kernel.startswith("confusion_matrix"):
+        preds, target = _wide(rng, rng.randint(-2, c + 2, n)), _wide(rng, rng.randint(-2, c + 2, n))
+        valid = _int64_mask(rng, n) if kernel.endswith("int64_mask") else rng.rand(n) >= 0.2
+        got = kernels.confusion_matrix(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(valid), c)
+        want = confusion_matrix_pallas(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(valid), c, interpret=True)
+    elif kernel.startswith("binned_curve_counts"):
+        scores = rng.rand(n).astype(np.float32)
+        labels = _wide(rng, rng.randint(0, 2, n))
+        valid = _int64_mask(rng, n) if kernel.endswith("int64_mask") else rng.rand(n) >= 0.2
+        thresholds = np.asarray(_linspace_thresholds(11))
+        got = kernels.binned_curve_counts(*(torch.from_numpy(a) for a in (scores, labels, valid, thresholds)))
+        want = binned_curve_counts_pallas(jnp.asarray(scores), jnp.asarray(labels), jnp.asarray(valid),
+                                          jnp.asarray(thresholds), interpret=True)
+    elif kernel == "weighted_bincount":
+        x = _wide(rng, rng.randint(-2, c + 2, n))
+        weights = rng.randint(0, 3, (3, n)).astype(np.float32)  # integer sums: exact in float32
+        got = kernels.weighted_bincount(torch.from_numpy(x), torch.from_numpy(weights), c)
+        want = weighted_bincount_pallas(jnp.asarray(x), jnp.asarray(weights), c, interpret=True)
+    else:
+        x = _wide(rng, rng.randint(-2, c + 2, n))
+        valid = {"bincount": None, "bincount_masked": rng.rand(n) >= 0.2, "bincount_int64_mask": _int64_mask(rng, n)}[
+            kernel]
+        got = kernels.bincount(torch.from_numpy(x), None if valid is None else torch.from_numpy(valid), c)
+        want = bincount_pallas(jnp.asarray(x), None if valid is None else jnp.asarray(valid), c, interpret=True)
+    return got, np.asarray(want)
+
+
+@pytest.mark.parametrize("kernel", [
+    "confusion_matrix", "confusion_matrix_int64_mask", "binned_curve_counts", "binned_curve_counts_int64_mask",
+    "weighted_bincount", "bincount", "bincount_masked", "bincount_int64_mask",
+])
+def test_plain_versions_take_int64_labels_as_jax_does(kernel):
+    got, want = _wide_cases(kernel)
+    assert got.device.type == "cpu"
+    np.testing.assert_array_equal(got.numpy(), want.astype(got.numpy().dtype))
+
+
+CONFMAT_DTYPES = {
+    "int64_both": (np.int64, np.int64, np.bool_),
+    "int64_preds_int32_target": (np.int64, np.int32, np.bool_),
+    "int32_preds_int64_target": (np.int32, np.int64, np.bool_),
+    "int16_labels": (np.int16, np.int16, np.bool_),
+    "uint8_labels_uint8_mask": (np.uint8, np.uint8, np.uint8),
+    "int32_mask": (np.int32, np.int32, np.int32),
+    "bool_labels": (np.bool_, np.bool_, np.bool_),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONFMAT_DTYPES))
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+def test_confusion_matrix_plain_on_any_integer_dtype_matches_pallas(case, layout):
+    pd, td, vd = CONFMAT_DTYPES[case]
+    c = 2 if pd is np.bool_ else 6
+    rng = np.random.RandomState(len(case))
+    low = 0 if np.dtype(pd).kind in "ub" else -2
+    preds = rng.randint(low, c + 2, 2 * 999).astype(pd)
+    target = rng.randint(low, c + 2, 2 * 999).astype(td)
+    valid = rng.randint(0, 2, 2 * 999).astype(vd)
+    if layout == "strided":  # every other element: views that are not contiguous
+        args = [torch.from_numpy(a)[::2] for a in (preds, target, valid)]
+        preds, target, valid = preds[::2], target[::2], valid[::2]
+        assert not args[0].is_contiguous()
+    else:
+        args = [torch.from_numpy(a) for a in (preds, target, valid)]
+    got = kernels.confusion_matrix(*args, c)
+    assert got.dtype == torch.int32 and got.shape == (c, c)
+    want = confusion_matrix_pallas(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(valid), c, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+
+
+CONFMAT_REFUSALS = {
+    "float_preds": (TypeError, "integer or bool", lambda p, t, v: (p.float(), t, v, 4)),
+    "float_mask": (TypeError, "integer or bool", lambda p, t, v: (p, t, v.float(), 4)),
+    "complex_target": (TypeError, "integer or bool", lambda p, t, v: (p, t.to(torch.complex64), v, 4)),
+    "short_target": (ValueError, "one length", lambda p, t, v: (p, t[:-1], v, 4)),
+    "long_mask": (ValueError, "one length", lambda p, t, v: (p, t, torch.cat([v, v[:1]]), 4)),
+    "one_element_target": (ValueError, "one length", lambda p, t, v: (p, t[:1], v, 4)),
+    "negative_classes": (ValueError, "num_classes", lambda p, t, v: (p, t, v, -1)),
+    "too_many_classes": (ValueError, "num_classes", lambda p, t, v: (p, t, v, 46341)),
+    "meta_tensors": (ValueError, "CUDA or CPU", lambda p, t, v: (p.to("meta"), t.to("meta"), v.to("meta"), 4)),
+    "meta_and_cpu": (ValueError, "one device", lambda p, t, v: (p, t.to("meta"), v, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONFMAT_REFUSALS))
+def test_confusion_matrix_wrapper_refusals(case):
+    error, match, make = CONFMAT_REFUSALS[case]
+    preds, target, valid = (torch.from_numpy(a) for a in _confmat_case(50, 4, seed=2))
+    with pytest.raises(error, match=match):
+        kernels.confusion_matrix(*make(preds, target, valid))
+
+
+def test_confusion_matrix_takes_any_shape_of_n_elements():
+    preds, target, valid = (torch.from_numpy(a) for a in _confmat_case(48, 5, seed=3))
+    want = kernels.confusion_matrix(preds, target, valid, 5)
+    got = kernels.confusion_matrix(preds.reshape(6, 8), target.reshape(4, 12), valid.reshape(2, 3, 8), 5)
+    assert torch.equal(got, want)
+    assert kernels.confusion_matrix(preds, target, valid, 0).shape == (0, 0)
+
+
+@pytest.mark.parametrize("n, c, blocks", [
+    (8192, 2, 0), (8193, 2, 9), (1 << 20, 2, 132), (1 << 20, 110, 132), (1 << 20, 111, 0), (50000, 10, 49),
+    (1 << 20, 1000, 0), (0, 1, 0),
+])
+def test_confusion_matrix_scratch_holds_a_slot_for_each_block_of_the_grid(monkeypatch, n, c, blocks):
+    """The grid of the shared-memory modes (N > 8192, C <= 110) takes one 1024-thread
+    block per SM at most, each with an int32 [C, C] slot; the other modes take none."""
+    monkeypatch.setattr(kernels, "_SM_COUNTS", {0: 132})
+    assert kernels._confusion_slots_bytes(0, n, c) == blocks * c * c * 4
 
 
 def _curve_case(n: int, t: int, seed: int, invalid: float = 0.2, ties: bool = False, unsorted: bool = False,

@@ -20,9 +20,11 @@ the launches of each kernel, so a run can show that its path went through them.
   ``torch.autograd.Function`` whose forward launches the kernel and whose backward
   applies the adjoint of the separable window in plain PyTorch.
 
-The counting kernels count in int32, exactly. ``weighted_bincount`` sums in float64
-and rounds to float32 once, on the card and in its plain version alike.
-``ssim_moments`` sums in float32, in the TPU kernel's order.
+Every kernel and plain version takes an int64 label or index by its low 32 bits, as
+the JAX package (64-bit types off) converts it to int32 on entry. The counting kernels
+count in int32, exactly. ``weighted_bincount`` sums in float64 and rounds to float32
+once, on the card and in its plain version alike. ``ssim_moments`` sums in float32,
+in the TPU kernel's order.
 """
 
 from __future__ import annotations
@@ -50,8 +52,8 @@ def reset_launch_counts() -> None:
 _ARGTYPES = {
     "confusion_matrix": (
         "tm_confusion_matrix",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_void_p, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
     ),
     "binned_curve_counts": (
         "tm_binned_curve_counts",
@@ -128,8 +130,14 @@ def _on_card(*tensors: Tensor) -> bool:
     return True
 
 
+def _as_jax_takes_it(a: Tensor) -> Tensor:
+    """``a`` as the JAX package receives it with 64-bit types off: an int64 tensor by
+    its low 32 bits (int32), any other as it is."""
+    return a.to(torch.int32) if a.dtype == torch.int64 else a
+
+
 def _mask_bytes(valid: Tensor) -> Tensor:
-    return valid.reshape(-1).to(torch.bool).contiguous().view(torch.uint8)
+    return _as_jax_takes_it(valid.reshape(-1)).to(torch.bool).contiguous().view(torch.uint8)
 
 
 # ------------------------------------------------------------------ confusion matrix
@@ -138,31 +146,100 @@ def _mask_bytes(valid: Tensor) -> Tensor:
 def confusion_matrix_plain(preds: Tensor, target: Tensor, valid: Tensor, num_classes: int) -> Tensor:
     """Plain PyTorch version of the confusion-matrix kernel: int32 [C, C], rows = target.
 
-    A pair that is invalid, or with a label outside ``[0, C)``, counts nowhere.
+    Labels and mask are taken as JAX takes them (an int64 by its low 32 bits). A pair
+    that is invalid, or with a label outside ``[0, C)``, counts nowhere.
     """
     c = num_classes
-    preds = preds.reshape(-1).to(torch.int64)
-    target = target.reshape(-1).to(torch.int64)
-    keep = valid.reshape(-1).to(torch.bool) & (preds >= 0) & (preds < c) & (target >= 0) & (target < c)
+    preds = _as_jax_takes_it(preds.reshape(-1)).to(torch.int64)
+    target = _as_jax_takes_it(target.reshape(-1)).to(torch.int64)
+    keep = _as_jax_takes_it(valid.reshape(-1)).to(torch.bool)
+    keep = keep & (preds >= 0) & (preds < c) & (target >= 0) & (target < c)
     counts = torch.bincount((target * c + preds)[keep], minlength=c * c)
     return counts.to(torch.int32).reshape(c, c)
 
 
+# what the confusion-matrix wrapper takes: integer or bool labels and mask
+_CONFUSION_DTYPES = frozenset({torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64})
+# the labels that the kernel reads as they are, by their item size
+_LABEL_BYTES = {torch.int32: 4, torch.int64: 8}
+# C * C must fit an int32 cell index
+_MAX_CLASSES = 46340
+# The slots of the kernel's grid in its shared-memory modes, one scratch per (device
+# index, raw stream): launches on two streams may run at once.
+_CONFUSION_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def _confusion_slots_bytes(index: int, n: int, c: int) -> int:
+    """The scratch one call needs (confusion_matrix.cu): past N = 8192 (kSingleBlockMax)
+    and within C * C = 12288 bins (kBlockBins), one int32 [C, C] slot for each block of a
+    grid of one 1024-thread block per SM at most; else none."""
+    if n <= 8192 or c * c > 12288:
+        return 0
+    sms = _SM_COUNTS.get(index)
+    if sms is None:
+        sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return min(-(-n // 1024), sms) * c * c * 4
+
+
+def _stream_scratch(cache: Dict[Tuple[int, int], Tensor], index: int, stream: int, nbytes: int,
+                    zero: bool) -> Tensor:
+    """At least ``nbytes`` of device scratch kept in ``cache`` for (device ``index``, raw
+    ``stream``), grown on demand; zeroed when made if ``zero``. Launches on one stream
+    run in order and may share it, launches on two streams may not."""
+    scratch = cache.get((index, stream))
+    if scratch is None or scratch.numel() < nbytes:
+        # allocated while `stream` is current, so the allocator ties it to that stream
+        make = torch.zeros if zero else torch.empty
+        scratch = make(max(nbytes, 4096), dtype=torch.uint8, device=torch.device("cuda", index))
+        cache[(index, stream)] = scratch
+    return scratch
+
+
+def _label_operand(a: Tensor) -> Tensor:
+    """int32 and int64 labels as they are; other integer types and bool cast to int32;
+    a copy where they are not contiguous."""
+    if a.dtype not in _LABEL_BYTES:
+        a = a.to(torch.int32)
+    return a if a.is_contiguous() else a.contiguous()
+
+
 def confusion_matrix(preds: Tensor, target: Tensor, valid: Tensor, num_classes: int) -> Tensor:
-    """int32 [C, C] counts of (target=row, pred=col) pairs where ``valid``."""
+    """int32 [C, C] counts of (target=row, pred=col) pairs where ``valid``.
+
+    ``preds``, ``target`` and ``valid`` hold N elements each, in any shape, of integer
+    or bool type. On the card: one kernel launch and one allocation (the output) per
+    call. The kernel reads int32 and int64 labels and a contiguous bool mask in place;
+    other label types are cast to int32, a mask of another type is compared with 0,
+    and what is not contiguous is copied.
+    """
+    if preds.dtype not in _CONFUSION_DTYPES or target.dtype not in _CONFUSION_DTYPES \
+            or valid.dtype not in _CONFUSION_DTYPES:
+        raise TypeError(
+            f"Expected integer or bool preds, target and valid, got {preds.dtype}, {target.dtype}, {valid.dtype}"
+        )
+    n = preds.numel()
+    if target.numel() != n or valid.numel() != n:
+        raise ValueError(f"Expected preds, target and valid of one length, got {n}, {target.numel()}, {valid.numel()}")
+    if not 0 <= num_classes <= _MAX_CLASSES:
+        raise ValueError(f"Expected num_classes in [0, {_MAX_CLASSES}], got {num_classes}")
     if not _on_card(preds, target, valid):
         return confusion_matrix_plain(preds, target, valid, num_classes)
-    preds = preds.reshape(-1).to(torch.int32).contiguous()
-    target = target.reshape(-1).to(torch.int32).contiguous()
-    mask = _mask_bytes(valid)
-    n = preds.numel()
-    if target.numel() != n or mask.numel() != n:
-        raise ValueError(f"Expected preds, target and valid of one length, got {n}, {target.numel()}, {mask.numel()}")
-    out = torch.zeros((num_classes, num_classes), dtype=torch.int32, device=preds.device)
-    if n:
+    preds, target = _label_operand(preds), _label_operand(target)
+    if valid.dtype != torch.bool:
+        valid = _as_jax_takes_it(valid) != 0
+    if not valid.is_contiguous():
+        valid = valid.contiguous()
+    out = preds.new_empty((num_classes, num_classes), dtype=torch.int32)
+    if num_classes:
+        index = preds.get_device()
+        stream = _raw_stream(index)
+        need = _confusion_slots_bytes(index, n, num_classes)
+        slots = _stream_scratch(_CONFUSION_SCRATCH, index, stream, need, zero=False).data_ptr() if need else None
         _launch(
-            "confusion_matrix", preds.get_device(),
-            preds.data_ptr(), target.data_ptr(), mask.data_ptr(), n, num_classes, out.data_ptr(),
+            "confusion_matrix", index,
+            preds.data_ptr(), _LABEL_BYTES[preds.dtype], target.data_ptr(), _LABEL_BYTES[target.dtype],
+            valid.data_ptr(), n, num_classes, slots, need, out.data_ptr(), stream=stream,
         )
     return out
 
@@ -179,8 +256,8 @@ def binned_curve_counts_plain(scores: Tensor, labels: Tensor, valid: Tensor, thr
     """
     scores = scores.reshape(-1).to(torch.float32)
     thr = thresholds.reshape(-1).to(torch.float32)
-    valid = valid.reshape(-1).to(torch.bool)
-    positive = labels.reshape(-1) != 0
+    valid = _as_jax_takes_it(valid.reshape(-1)).to(torch.bool)
+    positive = _as_jax_takes_it(labels.reshape(-1)) != 0
     pos = (valid & positive)[:, None]
     neg = (valid & ~positive)[:, None]
     out = torch.zeros((thr.shape[0], 2), dtype=torch.int64, device=scores.device)
@@ -223,7 +300,7 @@ def weighted_bincount_plain(x: Tensor, weights: Tensor, minlength: int) -> Tenso
     the TPU kernel, where ``0 * NaN`` and ``0 * inf`` are NaN, a non-finite weight of
     row k makes every bin of row k that it does not land in NaN.
     """
-    x = x.reshape(-1).to(torch.int64)
+    x = _as_jax_takes_it(x.reshape(-1)).to(torch.int64)
     w = weights.to(torch.float64)
     k = w.shape[0]
     keep = (x >= 0) & (x < minlength)
@@ -237,19 +314,12 @@ def weighted_bincount_plain(x: Tensor, weights: Tensor, minlength: int) -> Tenso
 
 
 # The weighted bincount's scratch (float64 sums, per-row trackers, a ticket), zeroed
-# once and left zero by every launch, one per (device index, raw stream): launches on
-# one stream run in order and may share it, launches on two streams may not.
+# once and left zero by every launch, one per (device index, raw stream).
 _WEIGHTED_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
 
 
-def _weighted_scratch(index: int, stream: int, k: int, c: int) -> Tensor:
-    need = k * c * 8 + 2 * k * 4 + 4  # tm_weighted_bincount_scratch_bytes
-    scratch = _WEIGHTED_SCRATCH.get((index, stream))
-    if scratch is None or scratch.numel() < need:
-        # allocated while `stream` is current, so the allocator ties it to that stream
-        scratch = torch.zeros(max(need, 4096), dtype=torch.uint8, device=torch.device("cuda", index))
-        _WEIGHTED_SCRATCH[(index, stream)] = scratch
-    return scratch
+def _weighted_scratch_bytes(k: int, c: int) -> int:
+    return k * c * 8 + 2 * k * 4 + 4  # tm_weighted_bincount_scratch_bytes
 
 
 def weighted_bincount(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
@@ -276,7 +346,7 @@ def weighted_bincount(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
     out = w.new_empty((k, minlength))
     index = w.get_device()
     stream = _raw_stream(index)
-    scratch = _weighted_scratch(index, stream, k, minlength)
+    scratch = _stream_scratch(_WEIGHTED_SCRATCH, index, stream, _weighted_scratch_bytes(k, minlength), zero=True)
     _launch(
         "weighted_bincount", index,
         x.data_ptr(), w.data_ptr(), n, k, minlength, scratch.data_ptr(), out.data_ptr(), stream=stream,
@@ -288,8 +358,9 @@ def weighted_bincount(x: Tensor, weights: Tensor, minlength: int) -> Tensor:
 
 
 def bincount_plain(x: Tensor, minlength: int) -> Tensor:
-    """Plain PyTorch version of the bincount kernel: int32 [C]; an index outside ``[0, C)`` counts nowhere."""
-    x = x.reshape(-1).to(torch.int64)
+    """Plain PyTorch version of the bincount kernel: int32 [C]. An index is taken as JAX
+    takes it (an int64 by its low 32 bits); one outside ``[0, C)`` counts nowhere."""
+    x = _as_jax_takes_it(x.reshape(-1)).to(torch.int64)
     return torch.bincount(x[(x >= 0) & (x < minlength)], minlength=minlength).to(torch.int32)
 
 
@@ -300,7 +371,7 @@ def bincount(x: Tensor, valid: Optional[Tensor], minlength: int) -> Tensor:
     TPU kernel routes it; without, the bincount kernel reads only the indices.
     """
     if valid is not None:
-        counts = weighted_bincount(x, valid.reshape(1, -1).to(torch.float32), minlength)
+        counts = weighted_bincount(x, _as_jax_takes_it(valid).reshape(1, -1).to(torch.float32), minlength)
         return counts[0].to(torch.int32)
     if not _on_card(x):
         return bincount_plain(x, minlength)
