@@ -14,12 +14,14 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the weighted bincount's float rows must agree within WEIGHTED_RTOL, the SSIM
    moments within MOMENTS_ATOL (with NaN where the plain version has it). Each
    confusion-matrix and weighted-bincount record also splits a call's host µs into its
-   steps and, once every record is timed, counts the device operations of one of its
-   calls (torch.profiler: one kernel) and their device µs; a confusion-matrix record names its label dtypes (the ImageNet
-   step's preds are int64, as argmax gives them) and bounds the bytes those dtypes
-   make, and at C >= 111 times both ways of zeroing the output in turns. Each
-   SSIM-moments record gives the GB/s its bytes make at its time and its bound's share
-   of that time.
+   steps, and each of those and each binned-curve record, once every record is timed,
+   counts the device operations of one of its calls (torch.profiler: one kernel) and
+   their device µs. A confusion-matrix or binned-curve record names its label dtypes
+   (the ImageNet step's preds are int64, as argmax gives them) and bounds the bytes
+   those dtypes make; a binned-curve record also times the composed library sequence
+   (searchsorted, bincount, flip-cumsum-flip) and keeps the compare's operations bound
+   of the first port beside its bytes bound. Each SSIM-moments record gives the GB/s
+   its bytes make at its time and its bound's share of that time.
 4. ``imagenet_eval``: an ImageNet-1k validation pass, 50,000 samples, 1000 classes,
    batch 500: top-1 and macro accuracy, macro F1, macro precision and recall, the
    confusion matrix, macro Jaccard, Matthews, Cohen's kappa, calibration error
@@ -58,20 +60,18 @@ Without a card the script exits non-zero before printing any result.
 
     python3 chip_smoke.py --kernel-times
 
-builds the kernels and prints only one JSON line: the confusion matrix at its five
-shapes, the weighted bincount and the SSIM moments timed through their public wrappers
-at the shapes of the ``kernels`` phase (and three larger SSIM windows), each checked
-against its plain version on the card, with the host µs and device kernels per
-confusion-matrix and weighted-bincount call and a digest of each SSIM output. The
-three wrappers' interfaces have not changed since they were ported, so a copy of this
-script run from the root of an earlier revision's checkout times that revision:
-running earlier, this, this, earlier on one card compares two revisions.
+builds the kernels and prints only one JSON line: the confusion matrix and the binned
+curve at their five shapes, the weighted bincount and the SSIM moments timed through
+their public wrappers at the shapes of the ``kernels`` phase (and three larger SSIM
+windows), each checked against its plain version on the card, with the host µs and
+device kernels per confusion-matrix, binned-curve and weighted-bincount call, the
+composed library sequence's time beside the binned curve and a digest of each SSIM
+output. The four wrappers' interfaces have not changed since they were ported, so a
+copy of this script run from the root of an earlier revision's checkout times that
+revision: running earlier, this, this, earlier on one card compares two revisions.
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
-its operations over the float32 rate of the data sheet. That rate counts a fused
-multiply-add as two operations; the binned-curve kernel's compare and add are one
-instruction each, so the card's issue rate for them is about half of it and its
-true floor is up to twice ``bound_ms``.
+its operations over the float32 rate of the data sheet (an FMA counting two).
 """
 
 from __future__ import annotations
@@ -209,8 +209,9 @@ def confusion_matrix_case(n: int, c: int, seed: int, device: str = "cuda", preds
     return preds, target, valid
 
 
-def curve_case(n: int, t: int, seed: int, unsorted_ties: bool = False, device: str = "cuda"):
-    """Scores, labels, 20% invalid, and the default grid (or a shuffled grid with exact ties)."""
+def curve_case(n: int, t: int, seed: int, unsorted_ties: bool = False, device: str = "cuda", label_dtype=None):
+    """Scores, labels (int32 unless a dtype is given), 20% invalid, and the default grid
+    (or a shuffled grid with exact ties)."""
     import torch
 
     from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds
@@ -223,9 +224,45 @@ def curve_case(n: int, t: int, seed: int, unsorted_ties: bool = False, device: s
         tie = torch.rand(n, generator=g, device=device) < 0.5
         pick = torch.randint(0, t, (n,), generator=g, device=device)
         scores = torch.where(tie, thresholds[pick], scores)
-    labels = torch.randint(0, 2, (n,), generator=g, device=device, dtype=torch.int32)
+    labels = torch.randint(0, 2, (n,), generator=g, device=device, dtype=torch.int32).to(label_dtype or torch.int32)
     valid = torch.rand(n, generator=g, device=device) >= 0.2
     return scores, labels, valid, thresholds
+
+
+def curve_bound_ms(labels, t: int) -> float:
+    """The bytes the binned curve must move over the memory rate: each score, label (at
+    its own width) and mask byte read once, the thresholds read, int32 [T, 2] written.
+    The search's N * ceil(log2(T + 1)) compares take far less."""
+    n = labels.numel()
+    return (n * (4 + labels.element_size() + 1) + t * 12) / HBM_BYTES_PER_S * 1e3
+
+
+def curve_compare_bound_ms(n: int, t: int) -> float:
+    """The bound of the earlier O(N * T) compare design: its 2 * N * T operations."""
+    return 2.0 * n * t / FP32_OPS_PER_S * 1e3
+
+
+def curve_library(scores, labels, valid, thresholds):
+    """The composed library sequence (no single PyTorch call computes the binned curve):
+    ``torch.searchsorted`` over the sorted thresholds, the masked bucket code,
+    ``torch.bincount``, then flip, ``cumsum``, flip. The thresholds are sorted before the
+    returned call; an unsorted list is scattered back in its order. A reference only: no
+    NaN among the scores (searchsorted puts NaN after every threshold)."""
+    import torch
+
+    t = thresholds.numel()
+    sorted_thr, order = torch.sort(thresholds)
+    identity = bool((order == torch.arange(t, device=order.device)).all())
+    positive = labels.to(torch.int32) != 0
+
+    def call():
+        pos = torch.searchsorted(sorted_thr, scores, right=True)
+        code = torch.where(valid, 2 * pos + (~positive), 2 * (t + 1))
+        hist = torch.bincount(code, minlength=2 * t + 3)[: 2 * (t + 1)].view(t + 1, 2)
+        counts = hist.flip(0).cumsum(0).flip(0)[1:]
+        return counts if identity else torch.empty_like(counts).index_copy_(0, order, counts)
+
+    return call
 
 
 def confusion_matrix_bound_ms(preds, target, c: int) -> float:
@@ -328,12 +365,17 @@ def confusion_host_breakdown(preds, target, valid, c: int, calls: int = 2000) ->
     }
 
 
-def kernel_record_curve(n: int, t: int, seed: int, main_path: bool, unsorted_ties: bool = False) -> dict:
+def kernel_record_curve(n: int, t: int, seed: int, main_path: bool, unsorted_ties: bool = False,
+                        label_dtype=None) -> dict:
+    """Also: the composed library sequence's time (``curve_library``), the host µs of a
+    whole call, and the earlier compare design's operations bound beside the bytes
+    bound. The record's ``_trace`` counts the device operations of one call once every
+    timing is done (``trace_records``)."""
     import torch
 
     from torchmetrics_tpu_torch.ops import kernels
 
-    scores, labels, valid, thresholds = curve_case(n, t, seed, unsorted_ties)
+    scores, labels, valid, thresholds = curve_case(n, t, seed, unsorted_ties, label_dtype=label_dtype)
     before = kernels.LAUNCHES["binned_curve_counts"]
     got = kernels.binned_curve_counts(scores, labels, valid, thresholds)
     torch.cuda.synchronize()
@@ -341,18 +383,34 @@ def kernel_record_curve(n: int, t: int, seed: int, main_path: bool, unsorted_tie
     err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got.cpu(), want):
         raise AssertionError(f"binned_curve_counts kernel != plain at N={n}, T={t}: max abs err {err}")
-    byte_ms = (n * (4 + 4 + 1) + t * 4 + t * 2 * 4) / HBM_BYTES_PER_S * 1e3
-    op_ms = 2.0 * n * t / FP32_OPS_PER_S * 1e3
+    library = curve_library(scores, labels, valid, thresholds)
+    if not torch.equal(library().cpu().to(torch.int32), want):
+        raise AssertionError("the composed searchsorted + bincount + cumsum yardstick disagrees with the plain version")
+    call = lambda: kernels.binned_curve_counts(scores, labels, valid, thresholds)  # noqa: E731
     record = {
         "kernel": "binned_curve_counts", "n": n, "thresholds": t, "unsorted_ties": unsorted_ties,
-        "main_path": main_path, "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: kernels.binned_curve_counts(scores, labels, valid, thresholds)),
+        "labels_dtype": str(labels.dtype), "main_path": main_path, "max_abs_err": err,
+        "kernel_ms": time_ms(call),
         "plain_ms": time_ms(lambda: kernels.binned_curve_counts_plain(scores, labels, valid, thresholds), reps=3),
         "library_ms": None,
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+        "composed_library_ms": time_ms(library),
+        "composed_library": "searchsorted(sorted thresholds, right=True), masked code, bincount, flip-cumsum-flip",
+        "bound_ms": curve_bound_ms(labels, t),
+        "bound_by": "bytes",
+        "compare_bound_ms": curve_compare_bound_ms(n, t),
+        "host_us_per_call": host_us(call, calls=500),
     }
+    record["_trace"] = lambda: curve_trace(call)
     return {**record, "launches": kernels.LAUNCHES["binned_curve_counts"] - before}
+
+
+def curve_trace(call) -> dict:
+    """The device operations of one call (torch.profiler): one kernel and nothing else."""
+    ran = device_kernels_per_call(call)
+    if ran["per_call"] != 1 or any("curve_" not in name for name in ran["names"]):
+        raise AssertionError(f"binned_curve_counts ran {ran} device operations per call, expected one kernel")
+    return {"device_kernels_per_call": ran["per_call"], "device_kernels": ran["names"],
+            "device_us_per_call": ran["device_us"]}
 
 
 def weighted_case(n: int, k: int, c: int, seed: int, device: str = "cuda"):
@@ -968,9 +1026,15 @@ CONFUSION_SHAPES = [(500, 1000, "int64"), (1 << 18, 2, "int32"), (1 << 20, 10, "
                     (1 << 20, 1000, "int32")]
 
 
+# K2's shapes (N, T, shuffled thresholds with ties, main path, seed): the ImageNet micro
+# PR curve's step (N = 500 x 1000 pairs), the binary step, and three stress shapes
+CURVE_SHAPES = [(500 * 1000, 200, False, True, 4), (1 << 18, 1000, False, True, 5), (1 << 20, 100, False, False, 100),
+                (1 << 20, 1000, False, False, 1000), (1 << 20, 200, True, False, 3)]
+
+
 def kernel_times() -> dict:
-    """The confusion matrix, the weighted bincount and the SSIM moments through their
-    public wrappers only."""
+    """The confusion matrix, the binned curve, the weighted bincount and the SSIM moments
+    through their public wrappers only."""
     import hashlib
 
     import torch
@@ -990,6 +1054,20 @@ def kernel_times() -> dict:
             "n": n, "classes": c, "preds_dtype": preds_dtype, "kernel_ms": time_ms(call, reps=200),
             "library_ms": time_ms(lambda: torch.bincount(code, weights=weight, minlength=c * c), reps=200),
             "host_us_per_call": host_us(call), "bound_ms": confusion_matrix_bound_ms(preds, target, c),
+        })
+    curve = []
+    for n, t, unsorted, _, seed in CURVE_SHAPES:
+        scores, labels, valid, thresholds = curve_case(n, t, seed, unsorted)
+        got = kernels.binned_curve_counts(scores, labels, valid, thresholds).cpu()
+        if not torch.equal(got, kernels.binned_curve_counts_plain(scores.cpu(), labels.cpu(), valid.cpu(),
+                                                                  thresholds.cpu())):
+            raise AssertionError(f"binned_curve_counts != plain at N={n}, T={t}")
+        call = (lambda s, l, v, th: lambda: kernels.binned_curve_counts(s, l, v, th))(scores, labels, valid, thresholds)
+        calls.append(call)
+        curve.append({
+            "n": n, "thresholds": t, "unsorted_ties": unsorted, "kernel_ms": time_ms(call, reps=200),
+            "composed_library_ms": time_ms(curve_library(scores, labels, valid, thresholds), reps=200),
+            "host_us_per_call": host_us(call), "bound_ms": curve_bound_ms(labels, t),
         })
     weighted = []
     for n, k, c in WEIGHTED_SHAPES:
@@ -1033,9 +1111,10 @@ def kernel_times() -> dict:
         })
         del got
     # traced last: a process that has run the profiler spends more host time per launch
-    for record, call in zip(confusion + weighted, calls):
+    for record, call in zip(confusion + curve + weighted, calls):
         record["device_kernels_per_call"] = device_kernels_per_call(call)
-    return {"phase": "kernel_times", "confusion_matrix": confusion, "weighted_bincount": weighted,
+    return {"phase": "kernel_times", "confusion_matrix": confusion, "binned_curve_counts": curve,
+            "weighted_bincount": weighted,
             "torch_steps_us": torch_steps_us, "ssim_moments": ssim}
 
 
@@ -1077,10 +1156,11 @@ def main() -> int:
     records.append(kernel_record_confusion_matrix(1 << 18, 2, seed=8, main_path=True))
     records.append(kernel_record_confusion_matrix(1 << 16, 10, seed=9, main_path=False, preds_dtype=torch.int64,
                                                   target_dtype=torch.int64, high_bits=True))
-    records += [kernel_record_curve(1 << 20, t, seed=t, main_path=False) for t in (100, 1000)]
-    records.append(kernel_record_curve(1 << 20, 200, seed=3, main_path=False, unsorted_ties=True))
-    records.append(kernel_record_curve(500 * 1000, 200, seed=4, main_path=True))
-    records.append(kernel_record_curve(1 << 18, 1000, seed=5, main_path=True))
+    records += [kernel_record_curve(n, t, seed=seed, main_path=main, unsorted_ties=unsorted)
+                for n, t, unsorted, main, seed in CURVE_SHAPES]
+    # the micro curve's shape with int64 labels, read in place; past 4096 thresholds (the compare mode)
+    records.append(kernel_record_curve(500 * 1000, 200, seed=6, main_path=False, label_dtype=torch.int64))
+    records.append(kernel_record_curve(1 << 16, 5000, seed=7, main_path=False, unsorted_ties=True))
     records.append(kernel_record_weighted_bincount(500, 3, 15, seed=11, main_path=True))
     records.append(kernel_record_weighted_bincount(1 << 18, 3, 15, seed=12, main_path=True))
     records += [kernel_record_weighted_bincount(1 << 20, k, c, seed=13 + k + c, main_path=False)

@@ -75,6 +75,10 @@ def _traced_calls(kernel: str, cases: list) -> list:
             n, c, dtypes = case
             preds, target, valid = (a.to(card) for a in _labels(n, c, seed=4, dtypes=dtypes))
             call = lambda: kernels.confusion_matrix(preds, target, valid, c)  # noqa: E731
+        elif kernel == "binned_curve_counts":
+            n, t, variant = case
+            arrays = [a.to(card) for a in _curve(n, t, seed=4, **CURVE_VARIANTS[variant])]
+            call = lambda: kernels.binned_curve_counts(*arrays)  # noqa: E731
         else:
             x, w = (a.to(card) for a in _weighted(case, 3, 15, seed=4))
             call = lambda: kernels.weighted_bincount(x, w, 15)  # noqa: E731
@@ -245,26 +249,52 @@ def test_a_cuda_tensor_never_reaches_the_plain_confusion_matrix(card, monkeypatc
 
 
 def _curve(n: int, t: int, seed: int, unsorted: bool = False, ties: bool = False, nan: bool = False,
-           invalid: float = 0.2):
+           invalid: float = 0.2, thresholds=None, int64: bool = False, specials: bool = False,
+           scores_dtype: torch.dtype = torch.float32):
+    """CPU scores, labels, mask and thresholds: the default grid of ``t`` thresholds, or
+    the ``thresholds`` given. ``ties`` sets half the scores to thresholds, ``specials``
+    puts +-inf, NaN and +-0.0 among them, ``int64`` makes int64 labels that carry
+    multiples of 2^32 (the kernel takes their low 32 bits, as JAX does)."""
     g = torch.Generator().manual_seed(seed)
-    thresholds = _linspace_thresholds(t)
+    if thresholds is None:
+        thresholds = _linspace_thresholds(t)
+        scores = torch.rand(n, generator=g)
+    else:
+        thresholds = torch.tensor(thresholds, dtype=torch.float32)
+        scores = torch.randn(n, generator=g) * 1.5
+    t = thresholds.numel()
     if unsorted:
         thresholds = thresholds[torch.randperm(t, generator=g)]
-    scores = torch.rand(n, generator=g)
     if ties and n:
         scores[: n // 2] = thresholds[torch.randint(0, t, (n // 2,), generator=g)]
     if nan and n:
         scores[torch.rand(n, generator=g) < 0.05] = float("nan")
+    if specials and n:
+        picks = torch.randint(0, n, (max(1, n // 50),), generator=g)
+        special = torch.tensor([float("inf"), float("-inf"), float("nan"), 0.0, -0.0])
+        scores[picks] = special[torch.arange(picks.numel()) % 5]
     labels = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    if int64:
+        labels = labels.long() + (torch.randint(-2, 3, (n,), generator=g) << 32)
     valid = torch.rand(n, generator=g) >= invalid
-    return scores, labels, valid, thresholds
+    return scores.to(scores_dtype), labels, valid, thresholds
 
 
 @pytest.mark.parametrize(
     "n, t, kw",
     [(0, 5, {}), (200, 11, {"invalid": 1.0}), (1000, 37, {"unsorted": True}), (1024, 21, {"ties": True}),
      (777, 300, {"ties": True, "unsorted": True}), (500, 11, {"nan": True}), (1 << 16, 1000, {}),
-     (3, 4096, {})],
+     (3, 4096, {}),
+     # the search mode's edges: one block up to N = 8192, a grid past it; T up to 4096
+     (8192, 1000, {"ties": True}), (8193, 1000, {"ties": True, "unsorted": True}), (1 << 18, 1000, {}),
+     (500_000, 200, {"ties": True}), (1 << 16, 4096, {"ties": True, "unsorted": True}), (1 << 16, 0, {"thresholds": [0.5], "ties": True}),
+     (1 << 16, 2, {"ties": True, "unsorted": True}), (1 << 16, 255, {"unsorted": True, "nan": True}),
+     # past 4096 thresholds: the compare mode, one block and a grid
+     (3000, 4097, {"ties": True}), (2000, 5000, {"ties": True, "unsorted": True}),
+     (3000, 20_000, {"ties": True, "unsorted": True}), (50_000, 5000, {"ties": True}),
+     # int64 labels read in place
+     (1 << 16, 200, {"int64": True, "ties": True}), (5000, 1000, {"int64": True, "unsorted": True}),
+     (3000, 20_000, {"int64": True})],
 )
 def test_binned_curve_counts_kernel_matches_plain(card, n, t, kw):
     arrays = _curve(n, t, seed=n + t, **kw)
@@ -272,6 +302,116 @@ def test_binned_curve_counts_kernel_matches_plain(card, n, t, kw):
     torch.cuda.synchronize()
     assert got.device.type == "cuda" and got.dtype == torch.int32
     assert torch.equal(got.cpu(), kernels.binned_curve_counts_plain(*arrays))
+
+
+NAN = float("nan")
+INF = float("inf")
+# threshold lists a user may pass: NaN at the tail (sorted) and in the middle (unsorted),
+# duplicates, one threshold, signed zeros, infinities, values outside [0, 1]
+CURVE_EDGES = {
+    "nan_thresholds_tail": [0.0, 0.25, 0.5, 0.75, 1.0, NAN, NAN],
+    "nan_thresholds_middle": [0.0, 0.25, NAN, 0.75, 1.0, 0.5],
+    "all_nan_thresholds": [NAN] * 5,
+    "duplicate_thresholds": [0.3, 0.3, 0.3, 0.7, 0.7, 0.1, 0.1, 0.3],
+    "sorted_duplicates": [0.1, 0.1, 0.3, 0.3, 0.3, 0.7],
+    "one_threshold": [0.5],
+    "signed_zeros": [0.0, -0.0, 0.25, -0.0, 0.0],
+    "infinite_thresholds": [-INF, 0.0, 0.5, 1.0, INF],
+    "outside_unit": [1.5, -2.0, 0.5, 3.0, -0.5, 0.0, 1.0],
+}
+
+
+@pytest.mark.parametrize("n", [1000, 1 << 16])
+@pytest.mark.parametrize("labels", ["int32", "int64", "float64_scores"])
+@pytest.mark.parametrize("edge", sorted(CURVE_EDGES))
+def test_binned_curve_counts_kernel_edge_cases(card, edge, labels, n):
+    """Bitwise the plain version on +-inf, NaN and +-0.0 scores, half of them tied to a
+    threshold, in one block and on a grid."""
+    arrays = _curve(n, 0, seed=n + len(edge), thresholds=CURVE_EDGES[edge], ties=True, specials=True,
+                    int64=labels == "int64", scores_dtype=torch.float64 if labels == "float64_scores" else torch.float32)
+    _dirty_allocator(card, len(CURVE_EDGES[edge]) * 2)
+    got = kernels.binned_curve_counts(*(a.to(card) for a in arrays))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.binned_curve_counts_plain(*arrays))
+
+
+def test_binned_curve_counts_calls_of_other_shapes_share_the_scratch(card):
+    """Back-to-back calls of other N and T on one stream, each equal to the plain
+    version: every grid launch leaves its cached scratch zero for the next."""
+    shapes = [(1 << 18, 1000), (700, 10), (1 << 17, 200), (1 << 16, 5000), (1 << 18, 1000), (9000, 4096), (8193, 2)]
+    cases = [_curve(n, t, seed=i, ties=True, unsorted=i % 2 == 1, int64=i % 3 == 0) for i, (n, t) in enumerate(shapes)]
+    got = [kernels.binned_curve_counts(*(a.to(card) for a in arrays)) for arrays in cases]
+    torch.cuda.synchronize()
+    for out, arrays in zip(got, cases):
+        assert torch.equal(out.cpu(), kernels.binned_curve_counts_plain(*arrays))
+
+
+def test_binned_curve_counts_on_two_streams_interleaved(card):
+    """Each stream has its own scratch: calls queued alternately on two streams, which
+    may run at once, each equal to the plain version."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = [[a.to(card) for a in _curve(1 << 18, t, seed=t, ties=True)] for t in (1000, 200, 5000, 100)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, arrays in enumerate(cases * 3):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append((kernels.binned_curve_counts(*arrays), arrays))
+    torch.cuda.synchronize()
+    assert len({key for key in kernels._CURVE_SCRATCH if key[1] in {s.cuda_stream for s in streams}}) == 2
+    for out, arrays in outs:
+        assert torch.equal(out.cpu(), kernels.binned_curve_counts_plain(*(a.cpu() for a in arrays)))
+
+
+def test_binned_curve_counts_refuses_a_scratch_too_small(card):
+    """The C entry point checks the scratch's size that the wrapper computes: a null or a
+    short scratch is refused before any launch, the exact size counts."""
+    n, t = 1 << 16, 200
+    scores, labels, valid, thr = (a.to(card) for a in _curve(n, t, seed=3))
+    need = kernels._curve_scratch_bytes(t)
+    scratch = torch.zeros(need, dtype=torch.uint8, device=card)
+    out = torch.empty((t, 2), dtype=torch.int32, device=card)
+    fn = kernels._entry_point("binned_curve_counts")
+    stream = kernels._raw_stream(torch.cuda.current_device())
+
+    def call(ptr, nbytes):
+        return fn(scores.data_ptr(), labels.data_ptr(), 4, valid.data_ptr(), n, thr.data_ptr(), t, ptr, nbytes,
+                  out.data_ptr(), stream)
+
+    assert call(None, 0) != 0 and call(scratch.data_ptr(), need - 4) != 0
+    assert call(scratch.data_ptr(), need) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), kernels.binned_curve_counts_plain(scores.cpu(), labels.cpu(), valid.cpu(), thr.cpu()))
+
+
+CURVE_VARIANTS = {"sorted": {}, "unsorted_ties": {"unsorted": True, "ties": True}, "int64": {"int64": True}}
+CURVE_TRACED = [(500_000, 200, "sorted"), (1 << 18, 1000, "sorted"), (1 << 20, 200, "unsorted_ties"),
+                (500_000, 200, "int64"), (5000, 100, "unsorted_ties"), (1 << 16, 5000, "unsorted_ties")]
+
+
+@pytest.fixture(scope="module")
+def binned_curve_counts_traces() -> list:
+    return _traced_in_a_new_process("binned_curve_counts", CURVE_TRACED)
+
+
+@pytest.mark.parametrize("case", range(len(CURVE_TRACED)), ids=[f"{n}-{t}-{v}" for n, t, v in CURVE_TRACED])
+def test_one_binned_curve_counts_call_runs_one_device_kernel(card, binned_curve_counts_traces, case):
+    """One kernel per call, nothing else: no label cast, no fill, no sort, no memset."""
+    ran = binned_curve_counts_traces[case]
+    assert sum(ran.values()) == 1 and all("curve_" in name for name in ran), ran
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_binned_curve_counts(card, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(kernels, "binned_curve_counts_plain", refuse)
+    for n, t, kw in [(0, 5, {}), (100, 0, {"thresholds": [0.3]}), (1 << 16, 200, {"int64": True}), (1 << 16, 1000, {"unsorted": True}),
+                     (3000, 5000, {})]:
+        kernels.binned_curve_counts(*(a.to(card) for a in _curve(n, t, seed=5, **kw)))
+    metric = tc.BinaryAUROC(thresholds=100)
+    metric.update(torch.rand(1000, device=card), torch.randint(0, 2, (1000,), device=card))
+    metric.compute()
+    torch.cuda.synchronize()
 
 
 def test_launches_are_counted_only_for_the_kernels(card):

@@ -4,8 +4,9 @@ On the CPU each wrapper runs its plain PyTorch version; these tests hold that pl
 version against the Pallas kernel in interpret mode and against the XLA path at the
 kernel's call site, exactly, on the edge cases: empty input, every sample invalid,
 out-of-range and negative labels, unsorted thresholds, scores equal to a threshold,
-NaN scores, class counts that are not a multiple of 128, and int64 labels beyond the
-int32 range (JAX takes them by their low 32 bits, and so do the plain versions). The
+NaN scores and thresholds, duplicate thresholds, +-0.0, +-inf, float64 scores, class
+counts that are not a multiple of 128, and int64 labels beyond the int32 range (JAX
+takes them by their low 32 bits, and so do the plain versions). The
 confusion-matrix wrapper's refusals are tested here too. The CUDA kernels
 themselves run only on a card: ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -95,6 +96,19 @@ def _wide_cases(kernel: str, n: int = 2000, c: int = 7):
         valid = _int64_mask(rng, n) if kernel.endswith("int64_mask") else rng.rand(n) >= 0.2
         got = kernels.confusion_matrix(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(valid), c)
         want = confusion_matrix_pallas(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(valid), c, interpret=True)
+    elif kernel == "binned_curve_counts_micro_one_hot":
+        # the micro-averaged curve's flattened (sample, class) pairs: softmax scores and
+        # int64 one-hot labels, here with multiples of 2^32 added
+        rows = n // c
+        logits = rng.randn(rows, c)
+        probs = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(np.float32).reshape(-1)
+        onehot = (rng.randint(0, c, rows)[:, None] == np.arange(c)[None, :]).astype(np.int64).reshape(-1)
+        labels = _wide(rng, onehot)
+        valid = np.repeat(rng.rand(rows) >= 0.1, c)
+        thresholds = np.asarray(_linspace_thresholds(200))
+        got = kernels.binned_curve_counts(*(torch.from_numpy(a) for a in (probs, labels, valid, thresholds)))
+        want = binned_curve_counts_pallas(jnp.asarray(probs), jnp.asarray(labels), jnp.asarray(valid),
+                                          jnp.asarray(thresholds), interpret=True)
     elif kernel.startswith("binned_curve_counts"):
         scores = rng.rand(n).astype(np.float32)
         labels = _wide(rng, rng.randint(0, 2, n))
@@ -119,7 +133,7 @@ def _wide_cases(kernel: str, n: int = 2000, c: int = 7):
 
 @pytest.mark.parametrize("kernel", [
     "confusion_matrix", "confusion_matrix_int64_mask", "binned_curve_counts", "binned_curve_counts_int64_mask",
-    "weighted_bincount", "bincount", "bincount_masked", "bincount_int64_mask",
+    "binned_curve_counts_micro_one_hot", "weighted_bincount", "bincount", "bincount_masked", "bincount_int64_mask",
 ])
 def test_plain_versions_take_int64_labels_as_jax_does(kernel):
     got, want = _wide_cases(kernel)
@@ -202,21 +216,35 @@ def test_confusion_matrix_scratch_holds_a_slot_for_each_block_of_the_grid(monkey
 
 
 def _curve_case(n: int, t: int, seed: int, invalid: float = 0.2, ties: bool = False, unsorted: bool = False,
-                nan: bool = False):
+                nan: bool = False, thresholds=None, specials: bool = False, scores_dtype=np.float32):
+    """The default grid of ``t`` thresholds and uniform scores, or the ``thresholds``
+    given and normal scores. ``ties`` sets half the scores to thresholds, ``specials``
+    puts +-inf, NaN and +-0.0 among them; float64 scores are ties moved by ~1e-12, which
+    the conversion to float32 rounds back onto the threshold or next to it."""
     rng = np.random.RandomState(seed)
-    thresholds = np.asarray(_linspace_thresholds(t))
+    if thresholds is None:
+        thresholds = np.asarray(_linspace_thresholds(t))
+        scores = rng.rand(n).astype(np.float32)
+    else:
+        thresholds = np.asarray(thresholds, dtype=np.float32)
+        scores = (rng.randn(n) * 1.5).astype(np.float32)
     if unsorted:
         thresholds = rng.permutation(thresholds)
-    scores = rng.rand(n).astype(np.float32)
     if ties and n:
         scores[: n // 2] = rng.choice(thresholds, n // 2)
     if nan and n:
         scores[rng.rand(n) < 0.05] = np.nan
+    if specials and n:
+        picks = rng.randint(0, n, max(1, n // 50))
+        scores[picks] = np.array([np.inf, -np.inf, np.nan, 0.0, -0.0], np.float32)[np.arange(picks.size) % 5]
+    if scores_dtype == np.float64:
+        scores = scores.astype(np.float64) + rng.randn(n) * 1e-12
     labels = rng.randint(0, 2, n).astype(np.int32)
     valid = rng.rand(n) >= invalid
     return scores, labels, valid, thresholds.astype(np.float32)
 
 
+NAN, INF = float("nan"), float("inf")
 CURVE_CASES = {
     "empty": dict(n=0, t=5),
     "all_invalid": dict(n=200, t=11, invalid=1.0),
@@ -225,6 +253,20 @@ CURVE_CASES = {
     "ties_unsorted": dict(n=777, t=200, ties=True, unsorted=True),
     "nan_scores": dict(n=500, t=11, nan=True),
     "t100": dict(n=2048, t=100),
+    # threshold lists a user may pass, each with ties, +-inf, NaN and +-0.0 among the scores
+    "nan_thresholds_tail": dict(n=1000, t=7, thresholds=[0.0, 0.25, 0.5, 0.75, 1.0, NAN, NAN], ties=True,
+                                specials=True),
+    "nan_thresholds_middle": dict(n=1000, t=6, thresholds=[0.0, 0.25, NAN, 0.75, 1.0, 0.5], ties=True,
+                                  specials=True),
+    "all_nan_thresholds": dict(n=500, t=4, thresholds=[NAN] * 4, specials=True),
+    "duplicate_thresholds": dict(n=1000, t=8, thresholds=[0.3, 0.3, 0.3, 0.7, 0.7, 0.1, 0.1, 0.3], ties=True,
+                                 specials=True),
+    "t1": dict(n=1000, t=1, thresholds=[0.5], ties=True, specials=True),
+    "signed_zeros": dict(n=1000, t=5, thresholds=[0.0, -0.0, 0.25, -0.0, 0.0], ties=True, specials=True),
+    "inf_scores": dict(n=1000, t=5, thresholds=[-INF, 0.0, 0.5, 1.0, INF], ties=True, specials=True),
+    "thresholds_outside_unit": dict(n=2000, t=7, thresholds=[1.5, -2.0, 0.5, 3.0, -0.5, 0.0, 1.0], ties=True,
+                                    specials=True),
+    "float64_scores": dict(n=2000, t=50, ties=True, unsorted=True, scores_dtype=np.float64),
 }
 
 

@@ -57,8 +57,8 @@ _ARGTYPES = {
     ),
     "binned_curve_counts": (
         "tm_binned_curve_counts",
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
     ),
     "weighted_bincount": (
         "tm_weighted_bincount",
@@ -136,8 +136,6 @@ def _as_jax_takes_it(a: Tensor) -> Tensor:
     return a.to(torch.int32) if a.dtype == torch.int64 else a
 
 
-def _mask_bytes(valid: Tensor) -> Tensor:
-    return _as_jax_takes_it(valid.reshape(-1)).to(torch.bool).contiguous().view(torch.uint8)
 
 
 # ------------------------------------------------------------------ confusion matrix
@@ -204,6 +202,14 @@ def _label_operand(a: Tensor) -> Tensor:
     return a if a.is_contiguous() else a.contiguous()
 
 
+def _mask_operand(valid: Tensor) -> Tensor:
+    """A bool mask as it is; a mask of another type compared with 0 (an int64 by its low
+    32 bits); a copy where it is not contiguous. The kernels read its bytes."""
+    if valid.dtype != torch.bool:
+        valid = _as_jax_takes_it(valid) != 0
+    return valid if valid.is_contiguous() else valid.contiguous()
+
+
 def confusion_matrix(preds: Tensor, target: Tensor, valid: Tensor, num_classes: int) -> Tensor:
     """int32 [C, C] counts of (target=row, pred=col) pairs where ``valid``.
 
@@ -225,11 +231,7 @@ def confusion_matrix(preds: Tensor, target: Tensor, valid: Tensor, num_classes: 
         raise ValueError(f"Expected num_classes in [0, {_MAX_CLASSES}], got {num_classes}")
     if not _on_card(preds, target, valid):
         return confusion_matrix_plain(preds, target, valid, num_classes)
-    preds, target = _label_operand(preds), _label_operand(target)
-    if valid.dtype != torch.bool:
-        valid = _as_jax_takes_it(valid) != 0
-    if not valid.is_contiguous():
-        valid = valid.contiguous()
+    preds, target, valid = _label_operand(preds), _label_operand(target), _mask_operand(valid)
     out = preds.new_empty((num_classes, num_classes), dtype=torch.int32)
     if num_classes:
         index = preds.get_device()
@@ -269,22 +271,45 @@ def binned_curve_counts_plain(scores: Tensor, labels: Tensor, valid: Tensor, thr
     return out.to(torch.int32)
 
 
+# The binned curve's scratch (int32 [2 (T + 1)] bucket sums and a ticket), zeroed once
+# and left zero by every launch, one per (device index, raw stream).
+_CURVE_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _curve_scratch_bytes(t: int) -> int:
+    return 8 * (t + 1) + 4  # tm_binned_curve_counts_scratch_bytes
+
+
 def binned_curve_counts(scores: Tensor, labels: Tensor, valid: Tensor, thresholds: Tensor) -> Tensor:
-    """int32 [T, 2] (tp, fp) per threshold, thresholds in any order."""
+    """int32 [T, 2] (tp, fp) per threshold, thresholds in any order.
+
+    ``scores``, ``labels`` and ``valid`` hold N elements each, in any shape. On the card:
+    one kernel launch and one allocation (the output) per call. The kernel reads float32
+    scores and thresholds, int32 and int64 labels and a bool mask in place; other float
+    types are cast to float32 (float64 rounds as JAX rounds it with 64-bit types off),
+    other label types to int32, a mask of another type is compared with 0, and what is
+    not contiguous is copied.
+    """
+    n = scores.numel()
+    if labels.numel() != n or valid.numel() != n:
+        raise ValueError(f"Expected scores, labels and valid of one length, got {n}, {labels.numel()}, {valid.numel()}")
     if not _on_card(scores, labels, valid, thresholds):
         return binned_curve_counts_plain(scores, labels, valid, thresholds)
-    scores = scores.reshape(-1).to(torch.float32).contiguous()
-    labels = labels.reshape(-1).to(torch.int32).contiguous()
-    mask = _mask_bytes(valid)
-    thr = thresholds.reshape(-1).to(torch.float32).contiguous()
-    n = scores.numel()
-    if labels.numel() != n or mask.numel() != n:
-        raise ValueError(f"Expected scores, labels and valid of one length, got {n}, {labels.numel()}, {mask.numel()}")
-    out = torch.zeros((thr.numel(), 2), dtype=torch.int32, device=scores.device)
-    if n and thr.numel():
+    scores, thr = _contiguous_float32(scores), _contiguous_float32(thresholds)
+    labels, valid = _label_operand(labels), _mask_operand(valid)
+    t = thr.numel()
+    out = scores.new_empty((t, 2), dtype=torch.int32)
+    if n == 0:  # nothing to count
+        return out.zero_()
+    if t:
+        index = scores.get_device()
+        stream = _raw_stream(index)
+        need = _curve_scratch_bytes(t)
+        scratch = _stream_scratch(_CURVE_SCRATCH, index, stream, need, zero=True)
         _launch(
-            "binned_curve_counts", scores.get_device(),
-            scores.data_ptr(), labels.data_ptr(), mask.data_ptr(), n, thr.data_ptr(), thr.numel(), out.data_ptr(),
+            "binned_curve_counts", index,
+            scores.data_ptr(), labels.data_ptr(), _LABEL_BYTES[labels.dtype], valid.data_ptr(), n, thr.data_ptr(), t,
+            scratch.data_ptr(), need, out.data_ptr(), stream=stream,
         )
     return out
 
