@@ -14,11 +14,12 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the weighted bincount's float rows must agree within WEIGHTED_RTOL, the SSIM
    moments within MOMENTS_ATOL (with NaN where the plain version has it). Each
    confusion-matrix and weighted-bincount record also splits a call's host µs into its
-   steps, and each of those and each binned-curve record, once every record is timed,
-   counts the device operations of one of its calls (torch.profiler: one kernel) and
-   their device µs. A confusion-matrix or binned-curve record names its label dtypes
-   (the ImageNet step's preds are int64, as argmax gives them) and bounds the bytes
-   those dtypes make; a binned-curve record also times the composed library sequence
+   steps, and each of those and each binned-curve and bincount record, once every
+   record is timed, counts the device operations of one of its calls (torch.profiler:
+   one kernel, else the run fails) and their device µs. A confusion-matrix,
+   binned-curve or bincount record names its label or index dtypes (the ImageNet
+   step's preds are int64, as argmax gives them) and bounds the bytes those dtypes
+   make; a binned-curve record also times the composed library sequence
    (searchsorted, bincount, flip-cumsum-flip) and keeps the compare's operations bound
    of the first port beside its bytes bound. Each SSIM-moments record gives the GB/s
    its bytes make at its time and its bound's share of that time.
@@ -61,14 +62,16 @@ Without a card the script exits non-zero before printing any result.
     python3 chip_smoke.py --kernel-times
 
 builds the kernels and prints only one JSON line: the confusion matrix and the binned
-curve at their five shapes, the weighted bincount and the SSIM moments timed through
-their public wrappers at the shapes of the ``kernels`` phase (and three larger SSIM
-windows), each checked against its plain version on the card, with the host µs and
-device kernels per confusion-matrix, binned-curve and weighted-bincount call, the
-composed library sequence's time beside the binned curve and a digest of each SSIM
-output. The four wrappers' interfaces have not changed since they were ported, so a
-copy of this script run from the root of an earlier revision's checkout times that
-revision: running earlier, this, this, earlier on one card compares two revisions.
+curve at their five shapes, the weighted bincount, the bincount and the SSIM moments
+timed through their public wrappers at the shapes of the ``kernels`` phase (and three
+larger SSIM windows), each checked against its plain version on the card, with the
+host µs, device kernels and device µs per confusion-matrix, binned-curve,
+weighted-bincount and bincount call, the library call's time beside the confusion
+matrix and the bincount, the composed library sequence's time beside the binned curve
+and a digest of each SSIM output. The five wrappers' interfaces have not changed
+since they were ported, so a copy of this script run from the root of an earlier
+revision's checkout times that revision: running earlier, this, this, earlier on one
+card compares two revisions.
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
 its operations over the float32 rate of the data sheet (an FMA counting two).
@@ -409,6 +412,11 @@ def curve_trace(call) -> dict:
     ran = device_kernels_per_call(call)
     if ran["per_call"] != 1 or any("curve_" not in name for name in ran["names"]):
         raise AssertionError(f"binned_curve_counts ran {ran} device operations per call, expected one kernel")
+    return traced(ran)
+
+
+def traced(ran: dict) -> dict:
+    """A record's keys for what ``device_kernels_per_call`` found."""
     return {"device_kernels_per_call": ran["per_call"], "device_kernels": ran["names"],
             "device_us_per_call": ran["device_us"]}
 
@@ -471,8 +479,7 @@ def weighted_trace(call) -> dict:
     ran = device_kernels_per_call(call)
     if ran["per_call"] != 1 or any("weighted_bincount_kernel" not in name for name in ran["names"]):
         raise AssertionError(f"weighted_bincount ran {ran} device kernels per call, not one")
-    return {"device_kernels_per_call": ran["per_call"], "device_kernels": ran["names"],
-            "device_us_per_call": ran["device_us"]}
+    return traced(ran)
 
 
 def trace_records(records: list) -> None:
@@ -524,34 +531,65 @@ def query_ids(queries: int = 6980, candidates: int = 1000, seed: int = 9, device
     return ids[torch.randperm(ids.numel(), generator=g, device=device)]
 
 
-def kernel_record_bincount(n: int, c: int, seed: int, main_path: bool) -> dict:
+def bincount_case(n: int, c: int, seed: int, ids: str = "random", dtype=None):
+    """Indices for the bincount kernel, int32 unless ``dtype`` is given: "queries", the
+    query ids of a reranking run (C queries, N / C candidates each) in a seeded order;
+    "grouped", the same ids grouped by query, as retrieval users pass them (runs of
+    N / C equal ids); "random", uniform in [0, C)."""
+    import torch
+
+    if ids == "queries":
+        x = query_ids(c, n // c, seed)
+    elif ids == "grouped":
+        x = torch.arange(c, device="cuda", dtype=torch.int32).repeat_interleave(n // c)
+    else:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randint(0, c, (n,), generator=g, device="cuda", dtype=torch.int32)
+    return x if dtype is None else x.to(dtype)
+
+
+def bincount_bound_ms(x, c: int) -> float:
+    return (x.numel() * x.element_size() + c * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_record_bincount(n: int, c: int, seed: int, main_path: bool, ids: str = "random", dtype=None) -> dict:
+    """Also: the host µs of a call and, once every record is timed, the device operations
+    of one call (torch.profiler: one kernel)."""
     import torch
 
     from torchmetrics_tpu_torch.ops import kernels
 
-    if main_path:
-        x = query_ids(c, n // c, seed)
-    else:
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        x = torch.randint(0, c, (n,), generator=g, device="cuda", dtype=torch.int32)
+    x = bincount_case(n, c, seed, ids, dtype)
     before = kernels.LAUNCHES["bincount"]
     got = kernels.bincount(x, None, c)
     torch.cuda.synchronize()
     want = kernels.bincount_plain(x.cpu(), c)
     err = int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
     if not torch.equal(got.cpu(), want):
-        raise AssertionError(f"bincount kernel != plain at N={n}, C={c}: max abs err {err}")
+        raise AssertionError(f"bincount kernel != plain at N={n}, C={c}, {ids} {x.dtype} ids: max abs err {err}")
     if not torch.equal(torch.bincount(x, minlength=c).cpu().to(torch.int32), want):
         raise AssertionError("the torch.bincount yardstick disagrees with the plain version")
+    call = lambda: kernels.bincount(x, None, c)  # noqa: E731
     record = {
-        "kernel": "bincount", "n": n, "bins": c, "main_path": main_path, "max_abs_err": err,
-        "kernel_ms": time_ms(lambda: kernels.bincount(x, None, c)),
+        "kernel": "bincount", "n": n, "bins": c, "ids": ids, "dtype": str(x.dtype).removeprefix("torch."),
+        "main_path": main_path, "max_abs_err": err,
+        "kernel_ms": time_ms(call),
         "plain_ms": time_ms(lambda: kernels.bincount_plain(x, c)),
         "library_ms": time_ms(lambda: torch.bincount(x, minlength=c)),
-        "bound_ms": (n * 4 + c * 4) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bincount_bound_ms(x, c),
         "bound_by": "bytes",
+        "host_us_per_call": host_us(call, calls=500),
     }
+    record["_trace"] = lambda: bincount_trace(call)
     return {**record, "launches": kernels.LAUNCHES["bincount"] - before}
+
+
+def bincount_trace(call) -> dict:
+    """The device operations of one call (torch.profiler): one kernel and nothing else."""
+    ran = device_kernels_per_call(call)
+    if ran["per_call"] != 1 or any("bincount_" not in name for name in ran["names"]):
+        raise AssertionError(f"bincount ran {ran} device operations per call, expected one kernel")
+    return traced(ran)
 
 
 def _window(kind: str, size: int, sigma: float, device: str = "cuda"):
@@ -1032,6 +1070,14 @@ CURVE_SHAPES = [(500 * 1000, 200, False, True, 4), (1 << 18, 1000, False, True, 
                 (1 << 20, 1000, False, False, 1000), (1 << 20, 200, True, False, 3)]
 
 
+# K4's shapes (N, C, ids, dtype, main path): the retrieval grouping's 6.98 M query ids
+# (shuffled as in its phase; as int64; grouped by query), and four stress shapes from a
+# per-lane copy (C = 100) to an output beyond shared memory (C = 2^20)
+BINCOUNT_SHAPES = [(6980 * 1000, 6980, "queries", "int32", True), (6980 * 1000, 6980, "queries", "int64", False),
+                   (6980 * 1000, 6980, "grouped", "int32", False)] + [
+    (1 << 20, c, "random", "int32", False) for c in (100, 8192, 1 << 16, 1 << 20)]
+
+
 def kernel_times() -> dict:
     """The confusion matrix, the binned curve, the weighted bincount and the SSIM moments
     through their public wrappers only."""
@@ -1082,6 +1128,18 @@ def kernel_times() -> dict:
             "n": n, "rows": k, "bins": c, "kernel_ms": time_ms(calls[-1], reps=200),
             "host_us_per_call": host_us(calls[-1]),
         })
+    bincount = []
+    for n, c, ids, dtype, _ in BINCOUNT_SHAPES:
+        x = bincount_case(n, c, 9 if ids == "queries" else c, ids, getattr(torch, dtype))
+        if not torch.equal(kernels.bincount(x, None, c).cpu(), kernels.bincount_plain(x.cpu(), c)):
+            raise AssertionError(f"bincount != plain at N={n}, C={c}, {ids} {dtype} ids")
+        calls.append((lambda x, c: lambda: kernels.bincount(x, None, c))(x, c))
+        bincount.append({
+            "n": n, "bins": c, "ids": ids, "dtype": dtype, "kernel_ms": time_ms(calls[-1], reps=200),
+            "library_ms": time_ms(lambda: torch.bincount(x, minlength=c), reps=200),
+            "host_us_per_call": host_us(calls[-1]), "bound_ms": bincount_bound_ms(x, c),
+        })
+        del x
     # what the steps of a wrapper cost alone at the ImageNet step's shape: the casts, a
     # float64 and an int32 zero fill, an empty output and a torch.cuda.Stream object
     x, w = weighted_case(500, 3, 15, seed=11)
@@ -1111,10 +1169,10 @@ def kernel_times() -> dict:
         })
         del got
     # traced last: a process that has run the profiler spends more host time per launch
-    for record, call in zip(confusion + curve + weighted, calls):
-        record["device_kernels_per_call"] = device_kernels_per_call(call)
+    for record, call in zip(confusion + curve + weighted + bincount, calls):
+        record.update(traced(device_kernels_per_call(call)))
     return {"phase": "kernel_times", "confusion_matrix": confusion, "binned_curve_counts": curve,
-            "weighted_bincount": weighted,
+            "weighted_bincount": weighted, "bincount": bincount,
             "torch_steps_us": torch_steps_us, "ssim_moments": ssim}
 
 
@@ -1165,8 +1223,9 @@ def main() -> int:
     records.append(kernel_record_weighted_bincount(1 << 18, 3, 15, seed=12, main_path=True))
     records += [kernel_record_weighted_bincount(1 << 20, k, c, seed=13 + k + c, main_path=False)
                 for c in (15, 1000, 8192) for k in (1, 3)]
-    records.append(kernel_record_bincount(6980 * 1000, 6980, seed=9, main_path=True))
-    records += [kernel_record_bincount(1 << 20, c, seed=c, main_path=False) for c in (100, 8192, 1 << 16)]
+    records += [kernel_record_bincount(n, c, seed=9 if ids == "queries" else c, main_path=main, ids=ids,
+                                       dtype=getattr(torch, dtype))
+                for n, c, ids, dtype, main in BINCOUNT_SHAPES]
     # main path: 4 DIV2K validation images (12 planes) padded by 5, then the first MS-SSIM scale
     records.append(kernel_record_ssim_moments(12, 1366, 2050, GAUSS11, GAUSS11, seed=51, main_path=True))
     records.append(kernel_record_ssim_moments(12, 688, 1030, GAUSS11, GAUSS11, seed=52, main_path=True))

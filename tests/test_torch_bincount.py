@@ -123,24 +123,57 @@ JAX_BINCOUNT_CASES = {"compare_c5": (500, 5), "compare_c64": (2000, 64), "one_ho
                       "chunked_c5000": (1000, 5000), "empty": (0, 7)}
 
 
+def _laid_out(x: np.ndarray, layout: str, seed: int) -> torch.Tensor:
+    """``x`` as the port receives it: "int32" as it is; "int64_wide" as int64 plus
+    multiples of 2^32 (JAX, 64-bit types off, keeps the low 32 bits); "offset_<k>" a view
+    that starts k elements into a larger buffer (not 16-byte aligned); "int64_offset_1"
+    both; "strided" every other element of a buffer (not contiguous)."""
+    rng = np.random.RandomState(seed)
+    junk = rng.randint(-5, 5, 3).astype(x.dtype)
+    if layout.startswith("int64"):
+        x = x.astype(np.int64) + rng.choice([-2, -1, 0, 1, 3], x.shape[0]).astype(np.int64) * (1 << 32)
+        junk = junk.astype(np.int64)
+    if "offset" in layout:
+        k = int(layout[-1])
+        return torch.from_numpy(np.concatenate([junk[:k], x]))[k:]
+    if layout == "strided":
+        return torch.from_numpy(np.stack([x, np.resize(junk, x.shape[0])], axis=1))[:, 0]
+    return torch.from_numpy(x)
+
+
+BINCOUNT_LAYOUTS = ["int32", "int64_wide", "offset_1", "offset_3", "int64_offset_1", "strided"]
+
+
+@pytest.mark.parametrize("layout", BINCOUNT_LAYOUTS)
 @pytest.mark.parametrize("case", sorted(JAX_BINCOUNT_CASES))
-def test_bincount_matches_jax(case):
+def test_bincount_matches_jax(case, layout):
     n, c = JAX_BINCOUNT_CASES[case]
     x, _ = _case(n, 1, c, seed=n * 3 + c)
-    got = _bincount(torch.from_numpy(x), minlength=c)
+    got = _bincount(_laid_out(x, layout, seed=n), minlength=c)
     want = jax_bincount(jnp.asarray(x), minlength=c)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if layout != "int32":  # the int64 ids as the JAX kernel takes them (its entry keeps the low 32 bits)
+        wide = _laid_out(x, layout, seed=n).numpy()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(bincount_pallas(jnp.asarray(wide), None, c,
+                                                                              interpret=True)))
     with pytest.raises(ValueError, match="minlength"):
         _bincount(torch.from_numpy(x))
 
 
+FLEXIBLE_LAYOUTS = {"int32": 0, "int64_beyond_int32": 3 << 32, "int64_below_int32": -(5 << 32), "offset_2": 0,
+                    "strided": 0}
+
+
+@pytest.mark.parametrize("layout", sorted(FLEXIBLE_LAYOUTS))
 @pytest.mark.parametrize("offset, spread, n", [(0, 7, 300), (-40, 100, 5000), (1000, 3, 50), (5, 1, 20)])
-def test_flexible_bincount_matches_jax(offset, spread, n):
+def test_flexible_bincount_matches_jax(offset, spread, n, layout):
     rng = np.random.RandomState(n + spread)
     ids = (offset + rng.choice(np.arange(spread) * 3, n)).astype(np.int32)  # sparse, shuffled ids
-    got = _flexible_bincount(torch.from_numpy(ids))
-    want = np.asarray(jax_flexible_bincount(jnp.asarray(ids)))
+    wide = ids.astype(np.int64) + FLEXIBLE_LAYOUTS[layout] if layout.startswith("int64") else ids
+    x = _laid_out(wide, layout if layout in ("offset_2", "strided") else "int32", seed=n)
+    got = _flexible_bincount(x)
+    want = np.asarray(jax_flexible_bincount(jnp.asarray(wide)))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert int(got.sum()) == n

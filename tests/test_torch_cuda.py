@@ -30,6 +30,7 @@ from torchmetrics_tpu_torch.functional.image import (  # noqa: E402
 )
 from torchmetrics_tpu_torch.functional.image.utils import _gaussian  # noqa: E402
 from torchmetrics_tpu_torch.ops import _build, kernels  # noqa: E402
+from torchmetrics_tpu_torch.utils.data import _flexible_bincount  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -56,10 +57,11 @@ def _labels(n: int, c: int, seed: int, invalid: float = 0.2, dtypes: str = "int3
     return preds, target, valid
 
 
-def _dirty_allocator(card: torch.device, c: int) -> None:
+def _dirty_allocator(card: torch.device, c: int, cells: int = 0) -> None:
     """Leave a freed block of junk in the caching allocator where the next [C, C] output
-    will likely land, so that a cell the kernel left unwritten would show."""
-    junk = torch.full((max(c * c, 1),), 0x5A5A5A5A, dtype=torch.int32, device=card)
+    (or one of ``cells`` int32 cells) will likely land, so that a cell the kernel left
+    unwritten would show."""
+    junk = torch.full((max(cells or c * c, 1),), 0x5A5A5A5A, dtype=torch.int32, device=card)
     del junk
 
 
@@ -79,6 +81,10 @@ def _traced_calls(kernel: str, cases: list) -> list:
             n, t, variant = case
             arrays = [a.to(card) for a in _curve(n, t, seed=4, **CURVE_VARIANTS[variant])]
             call = lambda: kernels.binned_curve_counts(*arrays)  # noqa: E731
+        elif kernel == "bincount":
+            n, c, ids = case
+            x = _bincount_ids(n, c, seed=4, ids=ids).to(card)
+            call = lambda: kernels.bincount(x, None, c)  # noqa: E731
         else:
             x, w = (a.to(card) for a in _weighted(case, 3, 15, seed=4))
             call = lambda: kernels.weighted_bincount(x, w, 15)  # noqa: E731
@@ -563,17 +569,172 @@ def test_one_weighted_bincount_call_runs_one_device_kernel(card, weighted_bincou
     assert sum(ran.values()) == 1 and all("weighted_bincount_kernel" in name for name in ran), ran
 
 
-@pytest.mark.parametrize("n, c", [(0, 5), (1000, 1), (1 << 16, 100), (1 << 16, 6980), (1 << 16, 12288),
-                                  (1 << 16, 12289), (1 << 16, 1 << 16)])
-def test_bincount_kernel_matches_plain(card, n, c):
-    x, w = _weighted(n, 1, c, seed=n + c, out_of_range=0.05)
-    got = kernels.bincount(x.to(card), None, c)
+def _bincount_ids(n: int, c: int, seed: int, ids: str = "int32", out_of_range: float = 0.05) -> torch.Tensor:
+    """CPU indices for the bincount kernel, about ``out_of_range`` of them below 0 or at or
+    above C: "int32"; "int64", the same plus multiples of 2^32 (the kernel keeps the low
+    32 bits, as JAX does), and the two int64 values next to the int32 range's ends;
+    "equal", one index in range for all; "runs", ids sorted in runs of 1000."""
+    g = torch.Generator().manual_seed(seed)
+    if ids == "equal":
+        return torch.full((n,), c // 2, dtype=torch.int32)
+    if ids == "runs":
+        return (torch.arange(n, dtype=torch.int32) // 1000) % (c + 1) - 1  # -1 counts nowhere
+    x = torch.randint(0, c, (n,), generator=g, dtype=torch.int32)
+    bad = torch.rand(n, generator=g) < out_of_range
+    x = torch.where(bad, torch.where(x % 2 == 0, c + 3, -2), x).to(torch.int32)
+    if ids == "int64":
+        x = x.long() + (torch.randint(-2, 3, (n,), generator=g) << 32)
+        x[:2] = torch.tensor([1 << 31, -(1 << 31) - 1])[:n]  # int32 -2^31 and 2^31 - 1
+    return x
+
+
+def _bincount_matches_plain(x: torch.Tensor, c: int) -> None:
+    got = kernels.bincount(x, None, c)
     torch.cuda.synchronize()
-    assert got.device.type == "cuda" and got.dtype == torch.int32
-    assert torch.equal(got.cpu(), kernels.bincount_plain(x, c))
-    valid = w[0] > 0.5
+    assert got.device.type == "cuda" and got.dtype == torch.int32 and got.shape == (c,)
+    assert torch.equal(got.cpu(), kernels.bincount_plain(x.cpu(), c))
+
+
+# each side of every mode's limit: one block up to N = 8192; per-lane copies up to
+# C = 384, one copy per block up to C = 57,856, atomics into the zeroed output above
+BINCOUNT_SHAPES = [
+    (0, 5), (1, 1), (5, 3), (1000, 1), (1 << 16, 100), (1 << 16, 6980), (1 << 16, 12288), (1 << 16, 12289),
+    (1 << 16, 1 << 16), (8192, 384), (8193, 384), (8192, 385), (8193, 385), (1 << 18, 384), (1 << 18, 385),
+    (8192, 57856), (8193, 57856), (8192, 57857), (8193, 57857), (1 << 18, 57856), (1 << 18, 57857),
+    (3, 1 << 20), (1 << 20, 1 << 20),
+]
+
+
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+@pytest.mark.parametrize("n, c", BINCOUNT_SHAPES)
+def test_bincount_kernel_matches_plain(card, n, c, ids):
+    x = _bincount_ids(n, c, seed=n + c, ids=ids)
+    _dirty_allocator(card, c, cells=c)
+    _bincount_matches_plain(x.to(card), c)
+    valid = torch.rand(n, generator=torch.Generator().manual_seed(n)) > 0.5
     masked = kernels.bincount(x.to(card), valid.to(card), c)
     assert torch.equal(masked.cpu(), kernels.bincount(x, valid, c))
+
+
+BINCOUNT_VIEWS = {
+    "offset_1": lambda x: x[1:], "offset_2": lambda x: x[2:], "offset_3": lambda x: x[3:-1],
+    "strided": lambda x: x[::2], "2d": lambda x: x[: x.numel() // 8 * 8].reshape(8, -1),
+    "2d_transposed": lambda x: x[: x.numel() // 8 * 8].reshape(8, -1).t(), "int16": lambda x: x.to(torch.int16),
+    "bool": lambda x: x > 0,
+}
+
+
+@pytest.mark.parametrize("n, c", [(11, 7), (8200, 100), (1 << 18, 100), (1 << 18, 6980), (1 << 18, 1 << 20)])
+@pytest.mark.parametrize("ids", ["int32", "int64"])
+@pytest.mark.parametrize("view", sorted(BINCOUNT_VIEWS))
+def test_bincount_kernel_takes_views(card, view, ids, n, c):
+    """Views at element offsets (not 16-byte aligned, read in place: the head before the
+    first 16-byte boundary and the tail one at a time), non-contiguous views (copied) and
+    other integer types (cast)."""
+    x = BINCOUNT_VIEWS[view](_bincount_ids(n, c, seed=c, ids=ids).to(card))
+    _bincount_matches_plain(x, c)
+
+
+@pytest.mark.parametrize("ids", ["equal", "runs"])
+@pytest.mark.parametrize("n, c", [(5000, 2), (1 << 20, 2), (1 << 20, 384), (1 << 20, 6980), (6980 * 1000, 6980),
+                                  (1 << 18, 57856), (1 << 20, 1 << 20)])
+def test_bincount_kernel_under_contention(card, ids, n, c):
+    """Every index equal, or sorted in runs of 1000 (retrieval ids grouped by query): whole
+    warps add one index; the counts stay exact."""
+    x = _bincount_ids(n, c, seed=0, ids=ids)
+    _bincount_matches_plain(x.to(card), c)
+    _bincount_matches_plain(x.to(card).long() + (3 << 32), c)
+
+
+@pytest.mark.parametrize("n, c", [(3, 1 << 20), (1 << 18, 1 << 20), (1 << 18, 57857), (5000, 57856),
+                                  (1 << 18, 57856), (1 << 18, 6980), (100, 384)])
+def test_bincount_writes_every_bin_of_a_large_output(card, n, c):
+    """Every bin of an output that the allocator filled with junk is written: where no
+    index counted, the kernel writes 0 (beyond shared memory, the cooperative launch
+    zeroes the output before it counts)."""
+    x = _bincount_ids(n, c, seed=n + c, ids="int64")[: max(1, n // 2)]
+    _dirty_allocator(card, c, cells=c)
+    _bincount_matches_plain(x.to(card), c)
+
+
+def test_bincount_calls_of_other_shapes_share_the_scratch(card):
+    """Back-to-back calls of other shapes and modes on one stream, each equal to the
+    plain version: every grid launch writes the slots it reads, whatever an earlier call
+    left in the cached scratch."""
+    shapes = [(1 << 18, 6980), (1 << 18, 100), (700, 10), (1 << 18, 57856), (1 << 17, 1 << 20), (1 << 18, 2),
+              (9000, 384), (1 << 18, 385), (8193, 1)]
+    cases = [(_bincount_ids(n, c, seed=i, ids=("int32", "int64")[i % 2]), c) for i, (n, c) in enumerate(shapes)]
+    got = [kernels.bincount(x.to(card), None, c) for x, c in cases]
+    torch.cuda.synchronize()
+    for out, (x, c) in zip(got, cases):
+        assert torch.equal(out.cpu(), kernels.bincount_plain(x, c))
+
+
+def test_bincount_refuses_a_scratch_too_small_for_its_grid(card):
+    """The C entry point checks the slots' size that the wrapper computes: a null or a
+    short scratch is refused before any launch, the exact size counts."""
+    n, c = 1 << 16, 6980
+    x = _bincount_ids(n, c, seed=3).to(card)
+    need = kernels._bincount_slots_bytes(torch.cuda.current_device(), n, c)
+    scratch = torch.empty(need, dtype=torch.uint8, device=card)
+    out = torch.empty(c, dtype=torch.int32, device=card)
+    fn = kernels._entry_point("bincount")
+    stream = kernels._raw_stream(torch.cuda.current_device())
+
+    def call(slots, nbytes, x_bytes=4):
+        return fn(x.data_ptr(), x_bytes, n, c, slots, nbytes, out.data_ptr(), stream)
+
+    assert need > 0 and call(None, 0) != 0 and call(scratch.data_ptr(), need - 4) != 0
+    assert call(scratch.data_ptr(), need, x_bytes=2) != 0  # only int32 and int64 are read
+    assert call(scratch.data_ptr(), need) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), kernels.bincount_plain(x.cpu(), c))
+
+
+def test_bincount_on_two_streams_interleaved(card):
+    """Each stream has its own scratch: calls queued alternately on two streams, which
+    may run at once, each equal to the plain version."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = [(_bincount_ids(1 << 18, c, seed=c + i, ids=("int32", "int64")[i % 2]).to(card), c)
+             for i, c in enumerate([2, 100, 6980, 57856, 1 << 20, 385])]
+    torch.cuda.synchronize()
+    outs = []
+    for i, (x, c) in enumerate(cases * 3):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append((kernels.bincount(x, None, c), x, c))
+    torch.cuda.synchronize()
+    assert len({key for key in kernels._BINCOUNT_SCRATCH if key[1] in {s.cuda_stream for s in streams}}) == 2
+    for out, x, c in outs:
+        assert torch.equal(out.cpu(), kernels.bincount_plain(x.cpu(), c))
+
+
+BINCOUNT_TRACED = [(6980 * 1000, 6980, "int32"), (6980 * 1000, 6980, "int64"), (6980 * 1000, 6980, "runs"),
+                   (5000, 100, "int64"), (1 << 20, 100, "int32"), (1 << 20, 8192, "int32"),
+                   (1 << 20, 1 << 16, "int64"), (1 << 20, 1 << 20, "int32")]
+
+
+@pytest.fixture(scope="module")
+def bincount_traces() -> list:
+    return _traced_in_a_new_process("bincount", BINCOUNT_TRACED)
+
+
+@pytest.mark.parametrize("case", range(len(BINCOUNT_TRACED)), ids=[f"{n}-{c}-{i}" for n, c, i in BINCOUNT_TRACED])
+def test_one_bincount_call_runs_one_device_kernel(card, bincount_traces, case):
+    """One kernel per call, nothing else: no cast of int64 ids, no fill, no memset."""
+    ran = bincount_traces[case]
+    assert sum(ran.values()) == 1 and all("bincount_" in name for name in ran), ran
+
+
+def test_a_cuda_tensor_never_reaches_the_plain_bincount(card, monkeypatch):
+    def refuse(*args):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(kernels, "bincount_plain", refuse)
+    for n, c, ids in [(0, 3, "int32"), (100, 2, "int64"), (1 << 16, 6980, "int32"), (1 << 16, 1 << 20, "int64"),
+                      (5000, 1000, "runs")]:
+        kernels.bincount(_bincount_ids(n, c, seed=5, ids=ids).to(card), None, c)
+    _flexible_bincount(_bincount_ids(1 << 16, 500, seed=6).to(card))
+    torch.cuda.synchronize()
 
 
 METRICS = {

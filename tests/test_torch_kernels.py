@@ -215,6 +215,19 @@ def test_confusion_matrix_scratch_holds_a_slot_for_each_block_of_the_grid(monkey
     assert kernels._confusion_slots_bytes(0, n, c) == blocks * c * c * 4
 
 
+@pytest.mark.parametrize("n, c, blocks", [
+    (8192, 6980, 0), (8193, 6980, 9), (6980 * 1000, 6980, 132), (1 << 20, 1, 132), (1 << 20, 57856, 132),
+    (1 << 20, 6981, 132), (1 << 20, 385, 132),
+    (1 << 20, 57857, 0), (50000, 100, 49), (1 << 20, 1 << 20, 0), (0, 1, 0),
+])
+def test_bincount_scratch_holds_a_slot_for_each_block_of_the_grid(monkeypatch, n, c, blocks):
+    """The grid of the shared-memory modes (N > 8192, C <= 57,856) takes one 1024-thread
+    block per SM at most, each with an int32 slot of C bins rounded up to 4; the other
+    modes take none."""
+    monkeypatch.setattr(kernels, "_SM_COUNTS", {0: 132})
+    assert kernels._bincount_slots_bytes(0, n, c) == blocks * -(-c // 4) * 16
+
+
 def _curve_case(n: int, t: int, seed: int, invalid: float = 0.2, ties: bool = False, unsorted: bool = False,
                 nan: bool = False, thresholds=None, specials: bool = False, scores_dtype=np.float32):
     """The default grid of ``t`` thresholds and uniform scores, or the ``thresholds``

@@ -65,7 +65,11 @@ _ARGTYPES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p],
     ),
-    "bincount": ("tm_bincount", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "bincount": (
+        "tm_bincount",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+         ctypes.c_void_p, ctypes.c_void_p],
+    ),
     "ssim_moments": (
         "tm_ssim_moments",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -168,16 +172,23 @@ _CONFUSION_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
 _SM_COUNTS: Dict[int, int] = {}
 
 
-def _confusion_slots_bytes(index: int, n: int, c: int) -> int:
-    """The scratch one call needs (confusion_matrix.cu): past N = 8192 (kSingleBlockMax)
-    and within C * C = 12288 bins (kBlockBins), one int32 [C, C] slot for each block of a
-    grid of one 1024-thread block per SM at most; else none."""
-    if n <= 8192 or c * c > 12288:
-        return 0
+def _grid_slots_bytes(index: int, n: int, bins: int) -> int:
+    """An int32 [bins] slot for each block of a grid of one 1024-thread block per SM at
+    most, none idle (the grid of confusion_matrix.cu's and bincount.cu's shared-memory
+    modes)."""
     sms = _SM_COUNTS.get(index)
     if sms is None:
         sms = _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return min(-(-n // 1024), sms) * c * c * 4
+    return min(-(-n // 1024), sms) * bins * 4
+
+
+def _confusion_slots_bytes(index: int, n: int, c: int) -> int:
+    """The scratch one call needs (confusion_matrix.cu): past N = 8192 (kSingleBlockMax)
+    and within C * C = 12288 bins (kBlockBins), a slot of C * C bins for each block of
+    the grid; else none."""
+    if n <= 8192 or c * c > 12288:
+        return 0
+    return _grid_slots_bytes(index, n, c * c)
 
 
 def _stream_scratch(cache: Dict[Tuple[int, int], Tensor], index: int, stream: int, nbytes: int,
@@ -389,21 +400,49 @@ def bincount_plain(x: Tensor, minlength: int) -> Tensor:
     return torch.bincount(x[(x >= 0) & (x < minlength)], minlength=minlength).to(torch.int32)
 
 
+# The bincount kernel's slots (bincount.cu), one scratch per (device index, raw stream).
+_BINCOUNT_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+# bincount.cu's kSingleBlockMax and kBlockBins: one block up to this N; shared memory
+# (and the grid's slots past one block) up to this C
+_BINCOUNT_SINGLE_BLOCK_MAX = 8192
+_BINCOUNT_BLOCK_BINS = (227 * 1024 - 1024) // 4
+
+
+def _bincount_slots_bytes(index: int, n: int, c: int) -> int:
+    """The scratch one call needs (bincount.cu): past one block's N and within shared
+    memory's C, a slot of C bins rounded up to 4 for each block of the grid; else none."""
+    if n <= _BINCOUNT_SINGLE_BLOCK_MAX or c > _BINCOUNT_BLOCK_BINS:
+        return 0
+    return _grid_slots_bytes(index, n, -(-c // 4) * 4)
+
+
 def bincount(x: Tensor, valid: Optional[Tensor], minlength: int) -> Tensor:
     """int32 [C] counts of the int indices ``x`` [N], over the samples where ``valid``.
 
     With ``valid`` this is the K=1 case of ``weighted_bincount`` cast to int32, as the
-    TPU kernel routes it; without, the bincount kernel reads only the indices.
+    TPU kernel routes it; without, the bincount kernel reads only the indices. On the
+    card: one kernel launch and one allocation (the output) per call, none for N = 0 or
+    C = 0. The kernel reads int32 and int64 indices in place; other types are cast to
+    int32, and what is not contiguous is copied.
     """
     if valid is not None:
         counts = weighted_bincount(x, _as_jax_takes_it(valid).reshape(1, -1).to(torch.float32), minlength)
         return counts[0].to(torch.int32)
     if not _on_card(x):
         return bincount_plain(x, minlength)
-    x = x.reshape(-1).to(torch.int32).contiguous()
-    out = torch.zeros(minlength, dtype=torch.int32, device=x.device)
-    if x.numel() and minlength:
-        _launch("bincount", x.get_device(), x.data_ptr(), x.numel(), minlength, out.data_ptr())
+    x = _label_operand(x)  # contiguous: its N elements in order, whatever its shape
+    n = x.numel()
+    if n == 0 or minlength == 0:
+        return x.new_zeros(minlength, dtype=torch.int32)
+    if minlength >= 1 << 31:
+        raise ValueError(f"Expected minlength below 2^31 (the kernel's bins are an int), got {minlength}")
+    out = x.new_empty(minlength, dtype=torch.int32)
+    index = x.get_device()
+    stream = _raw_stream(index)
+    need = _bincount_slots_bytes(index, n, minlength)
+    slots = _stream_scratch(_BINCOUNT_SCRATCH, index, stream, need, zero=False).data_ptr() if need else None
+    _launch("bincount", index, x.data_ptr(), _LABEL_BYTES[x.dtype], n, minlength, slots, need, out.data_ptr(),
+            stream=stream)
     return out
 
 
