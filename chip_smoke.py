@@ -30,17 +30,36 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
 5. ``binary_eval``: a CTR-style pass, 2^22 scores in 16 batches with 1% of targets
    ignored: AUROC and average precision (1000 thresholds), accuracy, F1, the
    confusion matrix, Matthews, Jaccard and calibration error (15 bins).
-6. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+6. ``collection_eval``: both eval loops again, each metric set as one
+   ``MetricCollection`` with compute groups, against the same metrics updated one by
+   one on the card: the groups, the launches per step of the confusion-matrix,
+   binned-curve and weighted-bincount kernels on both sides, µs per step from
+   alternating (per metric, grouped) pairs in one process with no profiler in
+   between, then one profile of each grouped loop. Integer states and every value of a
+   group of two or more must be bitwise the per-metric loop's; other floats within
+   the classification tolerance.
+7. ``collection_sync``: two ranks in one gloo world on the one card
+   (``torch.multiprocessing`` spawn, a timeout on the rendezvous and on each
+   collective, one on the whole world). Each rank makes the full seeded data, updates
+   a grouped and an ungrouped collection with every other batch on ``cuda:0`` and
+   calls ``compute``, which syncs: once untimed, then in turns with the value cache
+   off. It reports the backend, whether a collective stages the CUDA tensors through
+   host memory (gloo gathers CPU tensors), the ``all_gather`` calls per ``compute``
+   grouped and ungrouped, the ms per synced ``compute`` and the ms of the sync alone
+   (``sync_state`` of the leaders' states). Both ranks' synced values and states must equal the single-process
+   collection's over all the data (integers exactly, floats within the
+   classification tolerance); a rank that fails or hangs fails the run.
+8. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
-7. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+9. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-8. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+10. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
@@ -81,6 +100,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -826,6 +846,292 @@ def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile
     }
 
 
+# ------------------------------------------------------------------ collections
+
+# (set, metrics, data, batch, profiled steps): the two eval loops, as MetricCollections
+COLLECTION_SETS = (("imagenet", imagenet_metrics, imagenet_data, 500, 10),
+                   ("binary", binary_metrics, binary_data, 1 << 18, 4))
+COLLECTION_KERNELS = ("confusion_matrix", "binned_curve_counts", "weighted_bincount")
+# alternating (per metric, grouped) pairs timed in one process, no profiler in between
+COLLECTION_PAIRS = 5
+# the two-rank world: its rendezvous and each collective, then the whole world
+SYNC_COLLECTIVE_TIMEOUT_S = 120
+SYNC_WORLD_TIMEOUT_S = 300
+# synced computes timed on each side, alternating, after one untimed compute of each
+SYNC_REPEATS = 4
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+def bitwise_equal(a, b) -> bool:
+    """Equal dtypes, shapes and bits (NaN included)."""
+    import torch
+
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bitwise_equal(x, y) for x, y in zip(a, b))
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(bits), b.view(bits))
+
+
+def collection_states(col) -> dict:
+    """{metric: {state: tensor}} of a collection, as ``run_loop`` gives a per-metric loop's."""
+    return {name: m.state_dict(persistent_only=False) for name, m in col.items(keep_base=True)}
+
+
+def collection_eval_phase() -> tuple:
+    """Each eval loop's metrics as one MetricCollection with compute groups, on the card,
+    against the same metrics one by one: launches per step, µs per step from alternating
+    pairs, then one profile of each grouped loop; integer states and every grouped
+    member's value must be bitwise the per-metric loop's, other floats within the
+    classification tolerance. Returns the phase and, for ``collection_sync``, each
+    grouped loop's values and states."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops import kernels
+
+    sets, launches, data, reference = {}, {name: 0 for name in kernels.LAUNCHES}, {}, {}
+    for kind, metrics_fn, data_fn, batch, _ in COLLECTION_SETS:
+        preds, target = data[kind] = data_fn()
+        steps = -(-preds.shape[0] // batch)
+        us = {"per_metric": [], "grouped": []}
+        runs = {}
+        for pair in range(COLLECTION_PAIRS):
+            for side in ("per_metric", "grouped") if pair % 2 == 0 else ("grouped", "per_metric"):
+                metrics = metrics_fn("cuda")
+                col = MetricCollection(metrics) if side == "grouped" else None
+                kernels.reset_launch_counts()
+                if col is None:
+                    values, states, seconds = run_loop(metrics, preds, target, batch)
+                else:
+                    values, _, seconds = run_loop({"all": col}, preds, target, batch)
+                    values, states = values["all"], collection_states(col)
+                us[side].append(seconds / steps * 1e6)
+                if side not in runs:
+                    runs[side] = {"values": values, "states": to_cpu(states), "launches": dict(kernels.LAUNCHES),
+                                  "groups": col.compute_groups if col is not None else None}
+        grouped, per_metric = runs["grouped"], runs["per_metric"]
+        for kernel in COLLECTION_KERNELS:
+            if grouped["launches"][kernel] <= 0:
+                raise AssertionError(f"collection_eval {kind}: kernel {kernel} was never launched by the collection")
+        for name in launches:
+            launches[name] += grouped["launches"][name]
+        state_gap = max(compare(grouped["states"][m], per_metric["states"][m], f"state.{m}")
+                        for m in per_metric["states"])
+        value_gap, bitwise = 0.0, []
+        for members in grouped["groups"].values():
+            for m in members:
+                if len(members) > 1:
+                    if not bitwise_equal(grouped["values"][m], per_metric["values"][m]):
+                        raise AssertionError(f"collection_eval {kind}: grouped member {m}'s value is not bitwise"
+                                             " the per-metric loop's")
+                    bitwise.append(m)
+                else:
+                    value_gap = max(value_gap, compare(grouped["values"][m], to_cpu(per_metric["values"][m]),
+                                                       f"value.{m}"))
+        sets[kind] = {
+            "samples": int(preds.shape[0]), "batch": batch, "steps": steps,
+            "groups": [list(g) for g in grouped["groups"].values()],
+            "launches_per_step": {side: {k: runs[side]["launches"][k] / steps for k in COLLECTION_KERNELS}
+                                  for side in ("per_metric", "grouped")},
+            "us_per_step": us, "us_per_step_mean": {side: statistics.mean(v) for side, v in us.items()},
+            "us_per_step_median": {side: statistics.median(v) for side, v in us.items()},
+            "bitwise_members": bitwise, "max_state_float_gap": state_gap, "max_value_float_gap": value_gap,
+        }
+        reference[kind] = {"values": to_cpu(grouped["values"]), "states": grouped["states"]}
+    # one profile of each grouped loop, after every timing
+    for kind, metrics_fn, _, batch, profile_steps in COLLECTION_SETS:
+        preds, target = data.pop(kind)
+        sets[kind]["profile"] = profile_loop({"all": MetricCollection(metrics_fn("cuda"))}, preds, target, batch,
+                                             profile_steps)
+    return {"phase": "collection_eval", "sets": sets, "launches": launches}, reference
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def collection_sync_rank(rank: int, port: int) -> dict:
+    """One rank of the two-rank world on the one card: the full seeded data, every other
+    batch into a grouped and an ungrouped collection on cuda:0, then synced ``compute``s
+    of each, timed in turns and with their ``all_gather`` calls counted, and the sync of
+    the leaders' states alone, timed the same way (the grouped one also for the parent's
+    check)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops import kernels
+    from torchmetrics_tpu_torch.parallel.sync import stages_through_host
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=SYNC_COLLECTIVE_TIMEOUT_S))
+    try:
+        gathers = []
+        all_gather = dist.all_gather
+        # every collective of the sync layer is an all_gather: count them
+        dist.all_gather = lambda *a, **k: gathers.append(1) or all_gather(*a, **k)
+        kernels.reset_launch_counts()
+        out = {"backend": str(dist.get_backend()), "world": dist.get_world_size(),
+               "staged": stages_through_host(torch.zeros(1, device="cuda")), "sets": {}}
+        for kind, metrics_fn, data_fn, batch, _ in COLLECTION_SETS:
+            preds, target = data_fn()
+            cols = {"grouped": MetricCollection(metrics_fn("cuda")),
+                    "ungrouped": MetricCollection(metrics_fn("cuda"), compute_groups=False)}
+            for start in range(rank * batch, preds.shape[0], 2 * batch):
+                for col in cols.values():
+                    col.update(preds[start:start + batch], target[start:start + batch])
+            record = {name: {"ms_per_compute": [], "ms_per_sync_state": [], "groups": len(col.compute_groups)}
+                      for name, col in cols.items()}
+            leader_states = {name: {members[0]: col[members[0]].state_dict(persistent_only=False)
+                                    for members in col.compute_groups.values()} for name, col in cols.items()}
+            for col in cols.values():
+                for m in col.values():
+                    m.compute_with_cache = False  # every compute syncs again
+                col.compute()  # the first compute pays the first use of its kernels and of the gloo pairs
+            for repeat in range(SYNC_REPEATS):
+                for name in ("grouped", "ungrouped") if repeat % 2 == 0 else ("ungrouped", "grouped"):
+                    torch.cuda.synchronize()
+                    dist.barrier()
+                    del gathers[:]
+                    t0 = time.perf_counter()
+                    values = cols[name].compute()
+                    torch.cuda.synchronize()
+                    record[name]["ms_per_compute"].append((time.perf_counter() - t0) * 1e3)
+                    record[name]["collectives"] = len(gathers)
+                    dist.barrier()
+                    t0 = time.perf_counter()
+                    synced = cols[name].sync_state(leader_states[name])
+                    torch.cuda.synchronize()
+                    record[name]["ms_per_sync_state"].append((time.perf_counter() - t0) * 1e3)
+                    if name == "grouped":
+                        record["values"], record["states"] = to_cpu(values), to_cpu(synced)
+            out["sets"][kind] = record
+            del preds, target, cols
+        out["launches"] = dict(kernels.LAUNCHES)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def collection_sync_worker(rank: int, port: int, queue) -> None:
+    """Run one rank and put its result on ``queue`` as ``torch.save`` bytes (a tensor
+    put on a queue would be shared through a file descriptor that dies with the rank)."""
+    import io
+    import traceback
+
+    import torch
+
+    try:
+        payload = io.BytesIO()
+        torch.save(collection_sync_rank(rank, port), payload)
+        queue.put((rank, payload.getvalue(), None))
+    except BaseException:  # reported to the parent, which fails the run
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def collection_sync_phase(reference: dict) -> dict:
+    """Two ranks in one gloo world on the one card (``torch.multiprocessing`` spawn). Each
+    rank's synced values and leader states must equal the single-process collection's
+    over all the data (``reference``, from ``collection_eval``): integers exactly, floats
+    within the classification tolerance. A rank that fails or hangs fails the run."""
+    import io
+    import queue as queue_mod
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results_queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=collection_sync_worker, args=(rank, port, results_queue)) for rank in range(2)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + SYNC_WORLD_TIMEOUT_S
+        while len(results) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"collection_sync: the world hung ({sorted(results)} of 2 ranks reported)")
+            try:
+                rank, result, error = results_queue.get(timeout=1)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"collection_sync: a rank exited with {dead} before it reported")
+                continue
+            if error is not None:
+                raise AssertionError(f"collection_sync: rank {rank} failed:\n{error}")
+            results[rank] = torch.load(io.BytesIO(result))
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+            if proc.exitcode != 0:
+                raise AssertionError(f"collection_sync: a rank ended with exit code {proc.exitcode}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    wall = time.perf_counter() - t0
+
+    launches = {}
+    for rank, result in results.items():
+        for kernel in COLLECTION_KERNELS:
+            if result["launches"][kernel] <= 0:
+                raise AssertionError(f"collection_sync: rank {rank} never launched {kernel}")
+        for kernel, n in result["launches"].items():
+            launches[kernel] = launches.get(kernel, 0) + n
+    sets, gap = {}, 0.0
+    for kind, _, _, _, _ in COLLECTION_SETS:
+        ref = reference[kind]
+        for rank, result in results.items():
+            record = result["sets"][kind]
+            for leader, state in record["states"].items():
+                gap = max(gap, compare(state, ref["states"][leader], f"rank{rank}.state.{leader}"))
+            for metric, value in record["values"].items():
+                gap = max(gap, compare(value, ref["values"][metric], f"rank{rank}.value.{metric}"))
+        rank0 = results[0]["sets"][kind]
+        summary = {}
+        for metric, value in rank0["values"].items():
+            if isinstance(value, tuple):
+                summary[metric] = {"points": int(value[0].numel())}
+            elif value.numel() == 1:
+                summary[metric] = float(value)
+            else:
+                summary[metric] = {"shape": list(value.shape), "sum": int(value.sum())}
+        sets[kind] = {
+            "collectives_per_compute": {side: rank0[side]["collectives"] for side in ("grouped", "ungrouped")},
+            "groups": {side: rank0[side]["groups"] for side in ("grouped", "ungrouped")},
+            "ms_per_synced_compute": {side: {f"rank{r}": results[r]["sets"][kind][side]["ms_per_compute"]
+                                             for r in results} for side in ("grouped", "ungrouped")},
+            "ms_per_sync_state": {side: {f"rank{r}": results[r]["sets"][kind][side]["ms_per_sync_state"]
+                                         for r in results} for side in ("grouped", "ungrouped")},
+            "median_ms_rank0": {side: {"compute": statistics.median(rank0[side]["ms_per_compute"]),
+                                       "sync_state": statistics.median(rank0[side]["ms_per_sync_state"])}
+                                for side in ("grouped", "ungrouped")},
+            "values": summary,
+        }
+    return {"phase": "collection_sync", "ranks": 2, "backend": results[0]["backend"],
+            "staged": results[0]["staged"], "world": results[0]["world"], "max_float_gap": gap,
+            "world_wall_s": wall, "sets": sets, "launches": launches}
+
+
 class PredsOnly:
     """Feeds a one-input metric (total variation) the predictions of an eval loop."""
 
@@ -1255,6 +1561,14 @@ def main() -> int:
                            required=("confusion_matrix", "binned_curve_counts", "weighted_bincount"))
         phases.append(phase)
         emit({**phase, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    collection, reference = collection_eval_phase()
+    phases.append(collection)
+    emit({**collection, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    sync = collection_sync_phase(reference)
+    phases.append(sync)
+    emit({**sync, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     retrieval = retrieval_phase()
     phases.append(retrieval)

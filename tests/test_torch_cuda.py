@@ -21,6 +21,7 @@ import torch
 
 torch.set_num_threads(2)
 
+from torchmetrics_tpu_torch import MetricCollection  # noqa: E402
 from torchmetrics_tpu_torch import classification as tc  # noqa: E402
 from torchmetrics_tpu_torch import image as ti  # noqa: E402
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds  # noqa: E402
@@ -81,6 +82,10 @@ def _traced_calls(kernel: str, cases: list) -> list:
             n, t, variant = case
             arrays = [a.to(card) for a in _curve(n, t, seed=4, **CURVE_VARIANTS[variant])]
             call = lambda: kernels.binned_curve_counts(*arrays)  # noqa: E731
+        elif kernel == "grouped_imagenet_step":
+            col = MetricCollection(_imagenet_set(card))
+            probs, target = (a.to(card) for a in _imagenet_batches(1, n=case)[0])
+            call = lambda: col.update(probs, target)  # noqa: E731
         elif kernel == "bincount":
             n, c, ids = case
             x = _bincount_ids(n, c, seed=4, ids=ids).to(card)
@@ -911,3 +916,114 @@ def test_image_metric_on_the_card_equals_the_cpu(card, name):
     for preds, target in batches:
         _compare(on_card(preds.to(card), target.to(card)), on_cpu(preds, target))
     _compare(on_card.compute(), on_cpu.compute())
+
+
+def _imagenet_set(device) -> dict:
+    """``chip_smoke.py``'s ImageNet metric set (1000 classes)."""
+    c, kw = 1000, {"validate_args": False, "device": device}
+    return {
+        "accuracy_top1": tc.MulticlassAccuracy(c, average="micro", **kw),
+        "accuracy_macro": tc.MulticlassAccuracy(c, average="macro", **kw),
+        "f1_macro": tc.MulticlassF1Score(c, average="macro", **kw),
+        "precision_macro": tc.MulticlassPrecision(c, average="macro", **kw),
+        "recall_macro": tc.MulticlassRecall(c, average="macro", **kw),
+        "confusion_matrix": tc.MulticlassConfusionMatrix(c, **kw),
+        "jaccard_macro": tc.MulticlassJaccardIndex(c, average="macro", **kw),
+        "matthews": tc.MulticlassMatthewsCorrCoef(c, **kw),
+        "cohen_kappa": tc.MulticlassCohenKappa(c, **kw),
+        "calibration_error_b15": tc.MulticlassCalibrationError(c, n_bins=15, **kw),
+        "auroc_t100": tc.MulticlassAUROC(c, thresholds=100, **kw),
+        "pr_curve_micro_t200": tc.MulticlassPrecisionRecallCurve(c, average="micro", thresholds=200, **kw),
+    }
+
+
+def _binary_set(device) -> dict:
+    """``chip_smoke.py``'s CTR metric set."""
+    kw = {"validate_args": False, "device": device, "ignore_index": -1}
+    return {
+        "auroc_t1000": tc.BinaryAUROC(thresholds=1000, **kw),
+        "accuracy": tc.BinaryAccuracy(**kw),
+        "f1": tc.BinaryF1Score(**kw),
+        "confusion_matrix": tc.BinaryConfusionMatrix(**kw),
+        "average_precision_t1000": tc.BinaryAveragePrecision(thresholds=1000, **kw),
+        "matthews": tc.BinaryMatthewsCorrCoef(**kw),
+        "jaccard": tc.BinaryJaccardIndex(**kw),
+        "calibration_error_b15": tc.BinaryCalibrationError(n_bins=15, **kw),
+    }
+
+
+def _imagenet_batches(steps: int, n: int = 500):
+    g = torch.Generator().manual_seed(21)
+    out = []
+    for _ in range(steps):
+        target = torch.randint(0, 1000, (n,), generator=g)
+        logits = torch.randn(n, 1000, generator=g)
+        logits[torch.arange(n), target] += 3.0
+        out.append((torch.softmax(logits, dim=1), target))
+    return out
+
+
+def _binary_batches(steps: int, n: int = 1 << 14):
+    g = torch.Generator().manual_seed(22)
+    out = []
+    for _ in range(steps):
+        target = torch.randint(0, 2, (n,), generator=g)
+        scores = torch.sigmoid(torch.randn(n, generator=g) + 1.2 * target - 0.6)
+        out.append((scores, torch.where(torch.rand(n, generator=g) < 0.01, -1, target)))
+    return out
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.cpu().contiguous()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _assert_bitwise(a, b, where: str) -> None:
+    if isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b, strict=True)):
+            _assert_bitwise(x, y, f"{where}[{i}]")
+        return
+    assert a.dtype == b.dtype and a.shape == b.shape, where
+    assert torch.equal(_bits(a), _bits(b)), where
+
+
+@pytest.mark.parametrize("kind", ["imagenet", "binary"])
+def test_a_collection_on_the_card_equals_the_per_metric_loop(card, kind):
+    """Integer states and every grouped member's value bitwise; the leader updates alone."""
+    make, batches = (_imagenet_set, _imagenet_batches(3)) if kind == "imagenet" else (_binary_set, _binary_batches(3))
+    col, singles = MetricCollection(make(card)), make(card)
+    assert any(len(members) > 1 for members in col.compute_groups.values())
+    for probs, target in batches:
+        probs, target = probs.to(card), target.to(card)
+        col.update(probs, target)
+        for m in singles.values():
+            m.update(probs, target)
+    values = col.compute()
+    for name, m in singles.items():
+        for key, want in m.state_dict(persistent_only=False).items():
+            got = col[name].state_dict(persistent_only=False)[key]
+            assert got.device.type == "cuda"
+            if not want.is_floating_point():
+                assert torch.equal(got.cpu(), want.cpu()), f"{name}.{key}"
+    for members in col.compute_groups.values():
+        if len(members) > 1:
+            for name in members:
+                _assert_bitwise(values[name], singles[name].compute(), name)
+
+
+def test_a_grouped_imagenet_step_launches_the_confusion_matrix_twice(card):
+    """Eight metrics launch K1 each step one by one; grouped, the stat-scores and the
+    confusion-matrix leaders launch it once each. Counted by the wrappers, and by a
+    torch.profiler trace of one step in a new process."""
+    probs, target = (a.to(card) for a in _imagenet_batches(1)[0])
+    launches = {}
+    for side, metrics in (("per_metric", _imagenet_set(card)), ("grouped", MetricCollection(_imagenet_set(card)))):
+        kernels.reset_launch_counts()
+        for m in ([metrics] if side == "grouped" else metrics.values()):
+            m.update(probs, target)
+        launches[side] = dict(kernels.LAUNCHES)
+    assert launches["per_metric"]["confusion_matrix"] == 8 and launches["grouped"]["confusion_matrix"] == 2
+    assert launches["grouped"]["binned_curve_counts"] == launches["per_metric"]["binned_curve_counts"] == 1
+    assert launches["grouped"]["weighted_bincount"] == launches["per_metric"]["weighted_bincount"] == 1
+    (ran,) = _traced_in_a_new_process("grouped_imagenet_step", [500])
+    assert sum(n for name, n in ran.items() if "confusion_matrix" in name) == 2, ran

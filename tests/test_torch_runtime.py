@@ -260,19 +260,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_sync_raises_under_torch_distributed():
+def test_sync_raises_under_torch_distributed(monkeypatch):
+    """Under an initialised process group (gloo, a world of one) nothing raises any
+    more: ``compute`` syncs and equals the local value, ``forward``'s batch value never
+    syncs, and ``sync_state`` is the identity."""
     m = tc.MulticlassAccuracy(C, device="cpu")
-    p, t = _batches(9)[0]
+    local = tc.MulticlassAccuracy(C, device="cpu")
+    (p, t), (p2, t2) = _batches(9, n_batches=2)
     m.update(p, t)
+    local.update(p, t)
+    gathers = []
+    all_gather = torch.distributed.all_gather
+    monkeypatch.setattr(torch.distributed, "all_gather", lambda *a, **k: gathers.append(1) or all_gather(*a, **k))
     torch.distributed.init_process_group(
         "gloo", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1
     )
     try:
-        assert m(p, t) is not None  # forward's batch value never syncs
-        with pytest.raises(NotImplementedError, match="collection/sync slice"):
-            m.compute()
-        with pytest.raises(NotImplementedError, match="collection/sync slice"):
-            m.sync_state(m.init_state())
+        batch_value = m(p2, t2)
+        assert not gathers  # forward's batch value never syncs
+        local.update(p2, t2)
+        torch.testing.assert_close(batch_value, tc.MulticlassAccuracy(C, device="cpu")(p2, t2), rtol=0, atol=0)
+        value = m.compute()
+        assert len(gathers) == len(m._defaults)  # one all_gather per state
+        torch.testing.assert_close(value, local.compute(), rtol=0, atol=0)
+        assert not m._is_synced and m._cache is None  # the local state is bound again
+        state = m.state_dict(persistent_only=False)
+        synced = m.sync_state(dict(state))
+        assert synced.keys() == state.keys()
+        assert all(torch.equal(synced[k], state[k]) for k in state)
     finally:
         torch.distributed.destroy_process_group()
     assert m.compute() is not None

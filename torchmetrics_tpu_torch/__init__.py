@@ -6,7 +6,8 @@ SSIM window moments, and on the CPU with their plain PyTorch versions when a met
 is built with ``device="cpu"``. It imports ``torch`` and numpy, never JAX and never
 the JAX package.
 
-It holds the metric runtime; the binary and multiclass classification metrics: stat
+It holds the metric runtime, ``MetricCollection`` with static compute groups, and
+cross-process sync on ``torch.distributed`` (``parallel``); the binary and multiclass classification metrics: stat
 scores, accuracy, precision and recall, F-beta/F1, confusion matrix, Jaccard index,
 Matthews correlation, Cohen's kappa, calibration error, precision-recall curve,
 average precision, ROC (functional) and AUROC; and the image-restoration metrics:
@@ -16,10 +17,11 @@ SSIM, MS-SSIM, PSNR, PSNR-B, UQI, sliding-window RMSE and total variation.
 from torchmetrics_tpu_torch import functional
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 
 __version__ = "0.1.0.dev0"
 
-__all__ = ["CompositionalMetric", "Metric", "functional", *_classification_all, *_image_all]
+__all__ = ["CompositionalMetric", "Metric", "MetricCollection", "functional", *_classification_all, *_image_all]

@@ -54,6 +54,9 @@ class BinaryConfusionMatrix(Metric):
         self.validate_args = validate_args
         self.add_state("confmat", torch.zeros((2, 2), dtype=torch.int32), dist_reduce_fx="sum")
 
+    def _compute_group_params(self):
+        return (self.threshold, self.ignore_index)
+
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Accumulate the batch confusion matrix."""
         if self.validate_args:
@@ -89,6 +92,9 @@ class MulticlassConfusionMatrix(Metric):
         self.normalize = normalize
         self.validate_args = validate_args
         self.add_state("confmat", torch.zeros((num_classes, num_classes), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def _compute_group_params(self):
+        return (self.num_classes, self.ignore_index)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Accumulate the batch confusion matrix."""

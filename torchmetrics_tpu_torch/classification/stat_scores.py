@@ -87,6 +87,9 @@ class BinaryStatScores(_AbstractStatScores):
         self.validate_args = validate_args
         self._create_state(size=1, multidim_average=multidim_average)
 
+    def _compute_group_params(self):
+        return (self.threshold, self.multidim_average, self.ignore_index)
+
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update tp/fp/tn/fn with a batch."""
         if self.validate_args:
@@ -132,6 +135,12 @@ class MulticlassStatScores(_AbstractStatScores):
             size=1 if (average == "micro" and top_k == 1) else num_classes,
             multidim_average=multidim_average,
         )
+
+    def _compute_group_params(self):
+        # `average` only matters to compute, except that global micro with top_k=1
+        # keeps scalar states, which must not share a group with per-class ones
+        is_scalar_micro = self.average == "micro" and self.top_k == 1 and self.multidim_average == "global"
+        return (self.num_classes, self.top_k, self.multidim_average, self.ignore_index, is_scalar_micro)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
         """Update tp/fp/tn/fn with a batch."""

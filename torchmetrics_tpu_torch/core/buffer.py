@@ -1,0 +1,92 @@
+"""Fixed-capacity masked append buffer: the static-shape "cat" state.
+
+Counterpart of ``torchmetrics_tpu/core/buffer.py``. A ``MaskedBuffer`` is a
+``(capacity, *item)`` tensor plus a count of valid items. An append writes the next
+rows out of place and returns a new buffer, so a buffer shared by two metrics (the
+members of a compute group) never changes under either. The mask is
+``arange < count``; a cross-process sync gathers every rank's buffer and compacts the
+valid prefixes, in rank order, with one stable sort.
+
+In eager PyTorch the count is a Python int, always concrete, so an append past the
+capacity raises at once (the JAX package can only check after a jitted step).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence, Tuple, Union
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class MaskedBuffer:
+    """Append-only value buffer with a static capacity and a validity count."""
+
+    def __init__(self, data: Tensor, count: int) -> None:
+        self.data = data
+        self.count = int(count)
+
+    @classmethod
+    def create(
+        cls,
+        capacity: int,
+        item_shape: Tuple[int, ...] = (),
+        dtype: torch.dtype = torch.float32,
+        device: Union[str, torch.device] = "cpu",
+    ) -> "MaskedBuffer":
+        """An empty buffer of ``capacity`` items of ``item_shape``."""
+        return cls(torch.zeros((capacity, *item_shape), dtype=dtype, device=device), 0)
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    def append(self, batch: Tensor) -> "MaskedBuffer":
+        """Append an ``(n, *item)`` batch (or one item); returns a new buffer."""
+        batch = torch.as_tensor(batch, dtype=self.data.dtype, device=self.data.device)
+        if batch.ndim == self.data.ndim - 1:
+            batch = batch[None]
+        n = batch.shape[0]
+        if self.count + n > self.capacity:
+            raise ValueError(
+                f"MaskedBuffer overflow: capacity {self.capacity}, have {self.count}, appending {n}."
+                " Construct the metric with a larger buffer capacity."
+            )
+        data = torch.cat((self.data[: self.count], batch, self.data[self.count + n:]))
+        return MaskedBuffer(data, self.count + n)
+
+    @property
+    def mask(self) -> Tensor:
+        """Validity mask over the capacity axis."""
+        return torch.arange(self.capacity, device=self.data.device) < self.count
+
+    def values(self) -> Tensor:
+        """The valid prefix."""
+        return self.data[: self.count]
+
+    def concat_gathered(self, gathered_data: Tensor, gathered_counts: Sequence[int]) -> "MaskedBuffer":
+        """Compact per-rank buffers ``[S, cap, *item]`` into one ``[S*cap, *item]`` buffer.
+
+        A stable sort on invalidity moves every rank's valid prefix to the front, in
+        rank order.
+        """
+        num_ranks, cap = gathered_data.shape[:2]
+        counts = [int(c) for c in gathered_counts]
+        if max(counts, default=0) > cap:
+            raise ValueError(
+                f"MaskedBuffer rank overflowed before sync: capacity {cap}, per-rank counts {counts}."
+                " Construct the metric with a larger buffer capacity."
+            )
+        flat = gathered_data.reshape((num_ranks * cap,) + tuple(gathered_data.shape[2:]))
+        counts_t = torch.tensor(counts, device=gathered_data.device)
+        item_valid = (torch.arange(cap, device=gathered_data.device)[None, :] < counts_t[:, None]).reshape(-1)
+        order = torch.argsort((~item_valid).to(torch.int8), stable=True)
+        return MaskedBuffer(flat[order], sum(counts))
+
+    def map(self, fn: Callable[[Tensor], Tensor]) -> "MaskedBuffer":
+        """The same buffer with ``fn`` applied to its data (``.to(device)``, a detach)."""
+        return MaskedBuffer(fn(self.data), self.count)
+
+    def __repr__(self) -> str:
+        return f"MaskedBuffer(capacity={self.capacity}, count={self.count}, item={tuple(self.data.shape[1:])})"

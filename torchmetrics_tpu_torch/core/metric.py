@@ -14,25 +14,34 @@ PyTorch idiom inside:
 - Every metric lives on one device, the card unless the caller passes
   ``device="cpu"``; ``update`` moves its tensor and numpy arguments there.
 - Updates run eagerly and out of place (``self.tp = self.tp + tp``), so a state
-  snapshot is a reference and ``forward`` never copies.
-- Cross-process sync is not ported yet: ``sync``/``sync_state`` are a no-op in one
-  process and raise once ``torch.distributed`` is initialised.
+  snapshot is a reference and ``forward`` never copies. The members of a
+  ``MetricCollection``'s compute group hold the leader's state tensors for the same
+  reason: no state is ever written in place.
+- Cross-process sync runs on ``torch.distributed`` (``parallel/sync.py``) over the
+  metric's ``process_group``: ``compute`` syncs once a process group is initialised,
+  then restores the local state, as JAX's ``sync``/``unsync`` contract says.
+- A "cat" state is a Python list of tensors or a ``MaskedBuffer`` (fixed capacity).
 
-Error policies, quarantine, fault injection, the observability hooks, the streaming
-engine's commit and ``MaskedBuffer`` states come with the slices that port them.
+Error policies, quarantine, fault injection, the observability hooks, degrading a
+failed sync to local state (``sync_degraded`` stays ``False``) and the streaming
+engine's commit come with the slices that port them.
 """
 
 from __future__ import annotations
 
 import inspect
 from abc import ABC, abstractmethod
+from contextlib import contextmanager
 from copy import deepcopy
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
 
+from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.parallel.reductions import Reduction, merge_states
+from torchmetrics_tpu_torch.parallel.sync import distributed_available
+from torchmetrics_tpu_torch.parallel.sync import sync_state as _sync_state_fn
 from torchmetrics_tpu_torch.utils.checks import _resolve_device
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -40,16 +49,8 @@ from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
 Tensor = torch.Tensor
 
 _METRIC_PROTECTED_ATTRS = ("is_differentiable", "higher_is_better", "full_state_update")
-
-_SYNC_NOT_PORTED = (
-    "Cross-process sync of metric states is not ported yet: it arrives with the"
-    " collection/sync slice (`collections.py` and `parallel/sync.py` on torch.distributed)."
-)
-
-
-def distributed_available() -> bool:
-    """Whether a ``torch.distributed`` process group is initialised."""
-    return torch.distributed.is_available() and torch.distributed.is_initialized()
+# the registry's marker for a MaskedBuffer default: (marker, capacity, item shape, dtype)
+_MASKED_BUFFER = "__masked_buffer__"
 
 
 class Metric(torch.nn.Module, ABC):
@@ -61,6 +62,15 @@ class Metric(torch.nn.Module, ABC):
     Args (keyword-only):
         device: where the states live and the updates run; ``"cuda"`` (the default)
             raises on a host without a card, ``"cpu"`` runs on the CPU.
+        dist_sync_on_step: sync the states in every ``forward`` (its batch value then
+            covers every rank's batch).
+        process_group: the ``torch.distributed`` group to sync over (default: the
+            whole world).
+        dist_sync_fn: custom ``fn(state_dict, reductions) -> state_dict`` for sync.
+        distributed_available_fn: predicate deciding whether sync runs (default: a
+            process group is initialised).
+        sync_on_compute: whether ``compute`` syncs across processes (default True).
+        compute_with_cache: cache the computed value until the next update or reset.
     """
 
     is_differentiable: Optional[bool] = None
@@ -70,9 +80,21 @@ class Metric(torch.nn.Module, ABC):
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self._device = _resolve_device(kwargs.pop("device", "cuda"))
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        self.process_group = kwargs.pop("process_group", None)
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        self.compute_with_cache = kwargs.pop("compute_with_cache", True)
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError("Expected keyword argument `dist_sync_on_step` to be a `bool`")
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError("Expected keyword argument `dist_sync_fn` to be callable or None")
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError("Expected keyword argument `sync_on_compute` to be a `bool`")
 
         # state registry: defaults stay on the host so reset never aliases live states
         self._defaults: Dict[str, Any] = {}
@@ -84,6 +106,12 @@ class Metric(torch.nn.Module, ABC):
         # lifecycle
         self._update_count = 0
         self._computed: Any = None
+        self._cache: Optional[Dict[str, Any]] = None
+        self._is_synced = False
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
+        # set where a failed sync degrades to local state: the robust plane's, not ported
+        self.sync_degraded = False
 
         self._wrap_methods()
 
@@ -103,17 +131,22 @@ class Metric(torch.nn.Module, ABC):
         dist_reduce_fx: Union[str, Callable, None] = None,
         persistent: bool = False,
     ) -> None:
-        """Register a metric state: a tensor(-like) default or an empty list ("cat" state)."""
+        """Register a metric state: a tensor(-like) default, an empty list or an empty
+        ``MaskedBuffer`` ("cat" states)."""
         if not name.isidentifier():
             raise ValueError(f"Argument `name` must be a valid python identifier, got {name!r}")
         is_list = isinstance(default, list)
         if is_list and len(default) != 0:
             raise ValueError("state defaults that are lists must be empty lists")
-        if not is_list:
+        if isinstance(default, MaskedBuffer):
+            default = (_MASKED_BUFFER, default.capacity, tuple(default.data.shape[1:]), default.data.dtype)
+        elif not is_list:
             try:
                 default = torch.as_tensor(default).detach().to("cpu", copy=True)
             except Exception as err:
-                raise ValueError("Invalid input to `add_state`. Expected tensor-like or empty list") from err
+                raise ValueError(
+                    "Invalid input to `add_state`. Expected tensor-like, MaskedBuffer or empty list"
+                ) from err
         reduction = Reduction.from_arg(dist_reduce_fx)
         if callable(dist_reduce_fx):
             self._custom_fx[name] = dist_reduce_fx
@@ -125,6 +158,8 @@ class Metric(torch.nn.Module, ABC):
     def _default_to_value(self, v: Any) -> Any:
         if isinstance(v, list):
             return []
+        if isinstance(v, tuple):
+            return MaskedBuffer.create(v[1], v[2], v[3], self._device)
         return v.to(self._device, copy=True)
 
     def _fresh_state(self) -> Dict[str, Any]:
@@ -156,6 +191,36 @@ class Metric(torch.nn.Module, ABC):
             return
         super().__delattr__(name)
 
+    # ------------------------------------------------------------------ compute groups
+
+    def _compute_group_params(self) -> Optional[tuple]:
+        """Hashable tuple of the constructor arguments that decide the update, or None
+        when the metric cannot be grouped.
+
+        Families whose metrics share an inherited ``update`` (stat scores, confusion
+        matrices, threshold curves) override this. With the identity of the update
+        function and the declared state spec it forms the static compute-group key.
+        """
+        return None
+
+    def _compute_group_key(self) -> Optional[tuple]:
+        """Static compute-group key: metrics with equal keys share their update."""
+        params = self._compute_group_params()
+        if params is None:
+            return None
+        fn = getattr(self._update_impl, "__func__", self._update_impl)
+        spec = tuple(
+            sorted(
+                (
+                    name,
+                    "list" if isinstance(d, list) else d if isinstance(d, tuple) else (tuple(d.shape), str(d.dtype)),
+                    str(self._reductions[name]),
+                )
+                for name, d in self._defaults.items()
+            )
+        )
+        return (fn.__module__, fn.__qualname__, spec, params)
+
     @property
     def update_called(self) -> bool:
         return self._update_count > 0
@@ -173,7 +238,7 @@ class Metric(torch.nn.Module, ABC):
         super()._apply(fn, recurse)
 
         def _map(values):
-            return {k: [fn(x) for x in v] if isinstance(v, list) else fn(v) for k, v in values.items()}
+            return {k: _map_state(v, fn) for k, v in values.items()}
 
         self._state_values = _map(self._state_values)
         self._device = fn(torch.zeros((), device=self._device)).device
@@ -220,11 +285,10 @@ class Metric(torch.nn.Module, ABC):
         finally:
             self.__dict__["_state_values"] = prev
 
-    def sync_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
-        """Sync a state dict across processes: the identity in one process."""
-        if distributed_available():
-            raise NotImplementedError(_SYNC_NOT_PORTED)
-        return dict(state)
+    def sync_state(self, state: Dict[str, Any], process_group: Optional[Any] = None) -> Dict[str, Any]:
+        """Sync a state dict across the ranks of ``process_group`` (default: the metric's);
+        a pure function (see ``parallel.sync_state``)."""
+        return _sync_state_fn(state, self._reductions, process_group or self.process_group, device=self._device)
 
     def scan_update(self, state: Dict[str, Any], *batched_args: Any, **batched_kwargs: Any) -> Dict[str, Any]:
         """Fold a stream of batches into the state, one ``pure_update`` per leading index.
@@ -244,6 +308,10 @@ class Metric(torch.nn.Module, ABC):
     # ------------------------------------------------------------------------- update
 
     def _wrapped_update(self, *args: Any, **kwargs: Any) -> None:
+        if self._is_synced:
+            raise TorchMetricsUserError(
+                "The Metric has already been synced. HINT: call unsync() before modifying state."
+            )
         self._computed = None
         self._update_count += 1
         self._dispatch_update(*args, **kwargs)
@@ -260,10 +328,13 @@ class Metric(torch.nn.Module, ABC):
 
         Reduce-state path: the batch runs on a fresh state that is then merged into
         the global state pairwise. Full-state path (``full_state_update=True`` or
-        unknown): update the global state, then replay the batch on a fresh state for
-        the batch value. The batch value is never synced across processes.
+        unknown, or ``dist_sync_on_step``): update the global state, then replay the
+        batch on a fresh state for the batch value. The batch value syncs across
+        processes only with ``dist_sync_on_step``.
         """
-        if self.full_state_update or self.full_state_update is None:
+        if self._is_synced:
+            raise TorchMetricsUserError("The Metric shouldn't be synced when performing `forward`.")
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             return self._forward_full_state_update(*args, **kwargs)
         return self._forward_reduce_state_update(*args, **kwargs)
 
@@ -271,15 +342,16 @@ class Metric(torch.nn.Module, ABC):
         self.update(*args, **kwargs)
         global_state = dict(self._state_values)
         global_count = self._update_count
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         self._state_values = self._fresh_state()
         self._update_count = 1
         try:
-            self._dispatch_update(*args, **kwargs)
-            batch_val = _squeeze_if_scalar(self._compute_impl())
-        finally:
-            self._update_count = global_count
-            self._state_values = global_state
             self._computed = None
+            self._dispatch_update(*args, **kwargs)
+            batch_val = self.compute()
+        finally:
+            self._restore_after_forward(global_state, global_count)
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -287,17 +359,28 @@ class Metric(torch.nn.Module, ABC):
         global_count = self._update_count
         self._state_values = self._fresh_state()
         self._update_count = 1
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         self._computed = None
         try:
             self._dispatch_update(*args, **kwargs)
-            batch_val = _squeeze_if_scalar(self._compute_impl())
+            batch_val = self.compute()
         except Exception:
-            self._state_values = global_state
-            self._update_count = global_count
+            self._restore_after_forward(global_state, global_count)
             raise
-        self._state_values = self._reduce_states(global_state, dict(self._state_values), global_count)
-        self._update_count = global_count + 1
+        merged = self._reduce_states(global_state, dict(self._state_values), global_count)
+        self._restore_after_forward(merged, global_count + 1)
         return batch_val
+
+    def _restore_after_forward(self, state: Dict[str, Any], count: int) -> None:
+        """Bind the global state again and leave the sync flags as ``compute`` wants them."""
+        self._state_values = state
+        self._update_count = count
+        self._is_synced = False
+        self._cache = None
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
+        self._computed = None
 
     def _reduce_states(self, global_state: Dict[str, Any], batch_state: Dict[str, Any], global_count: int) -> Dict[str, Any]:
         """Merge the batch state into the global state."""
@@ -311,10 +394,73 @@ class Metric(torch.nn.Module, ABC):
 
     # --------------------------------------------------------------------------- sync
 
-    def sync(self) -> None:
-        """Sync the states across processes: a no-op in one process."""
-        if distributed_available():
-            raise NotImplementedError(_SYNC_NOT_PORTED)
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        fn = dist_sync_fn or self.dist_sync_fn
+        if fn is None:
+            synced = _sync_state_fn(
+                dict(self._state_values), self._reductions, process_group or self.process_group, device=self._device
+            )
+        else:
+            synced = fn(dict(self._state_values), self._reductions)
+        # custom reduce functions run on the gathered tensor
+        for name, custom in self._custom_fx.items():
+            if name in synced and isinstance(synced[name], Tensor):
+                synced[name] = custom(synced[name])
+        self._state_values = synced
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Keep the local state aside and bind the state synced across processes.
+
+        A no-op unless ``should_sync`` and a process group is available
+        (``distributed_available``, default the metric's ``distributed_available_fn``).
+        """
+        if self._is_synced and should_sync:
+            raise TorchMetricsUserError("The Metric has already been synced.")
+        is_dist = (distributed_available or self.distributed_available_fn)()
+        if not should_sync or not is_dist:
+            return
+        self._cache = dict(self._state_values)
+        # the robust plane wraps this call: a failed collective degrades to the local
+        # state and sets `sync_degraded`
+        self._sync_dist(dist_sync_fn, process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Bind the local state kept aside by :meth:`sync` again."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise TorchMetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise TorchMetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._state_values = self._cache
+        self._cache = None
+        self._is_synced = False
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ):
+        """Synced state inside the block, the local state again after it."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
 
     # ------------------------------------------------------------------------ compute
 
@@ -327,11 +473,14 @@ class Metric(torch.nn.Module, ABC):
                 " method which may lead to errors, as metric states have not yet been updated.",
                 UserWarning,
             )
-        if self._computed is not None:
+        if self.compute_with_cache and self._computed is not None:
             return self._computed
-        self.sync()
-        value = _squeeze_if_scalar(self._compute_impl())
-        self._computed = value
+        with self.sync_context(
+            dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+        ):
+            value = _squeeze_if_scalar(self._compute_impl())
+        if self.compute_with_cache:
+            self._computed = value
         return value
 
     # ------------------------------------------------------------------------- others
@@ -348,6 +497,9 @@ class Metric(torch.nn.Module, ABC):
         """Reset state to defaults."""
         self._update_count = 0
         self._computed = None
+        self._cache = None
+        self._is_synced = False
+        self.sync_degraded = False
         self._state_values = self._fresh_state()
 
     def clone(self) -> "Metric":
@@ -366,7 +518,8 @@ class Metric(torch.nn.Module, ABC):
         persistent_only: bool = True,
         keep_vars: bool = False,
     ) -> Dict[str, Any]:
-        """States by name, as tensors (lists of tensors for "cat" states).
+        """States by name, as tensors (lists of tensors for list states, a dict of
+        ``data`` and ``count`` for a ``MaskedBuffer``, as the JAX package writes them).
 
         ``persistent_only=False`` includes every state, for checkpoints taken
         mid-epoch. ``keep_vars`` is accepted for ``torch.nn.Module`` callers.
@@ -375,25 +528,42 @@ class Metric(torch.nn.Module, ABC):
         for key, value in self._state_values.items():
             if persistent_only and not self._persistent.get(key, False):
                 continue
-            destination[prefix + key] = [v.detach() for v in value] if isinstance(value, list) else value.detach()
+            if isinstance(value, MaskedBuffer):
+                destination[prefix + key] = {
+                    "data": value.data.detach(), "count": torch.tensor(value.count, dtype=torch.int32)
+                }
+            else:
+                destination[prefix + key] = _map_state(value, Tensor.detach)
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:  # type: ignore[override]
-        """Restore states saved by :meth:`state_dict` (tensors or numpy arrays)."""
+        """Restore states saved by :meth:`state_dict` (tensors or numpy arrays).
+
+        Each state is bound anew, never copied into: a compute-group member that loads
+        a state leaves its leader's tensors as they were.
+        """
+
+        def _put(v):
+            return torch.as_tensor(v, device=self._device)
+
         for key in self._defaults:
             full = prefix + key
             if full in state_dict:
                 value = state_dict[full]
                 if isinstance(value, list):
-                    self._state_values[key] = [torch.as_tensor(v, device=self._device) for v in value]
+                    self._state_values[key] = [_put(v) for v in value]
+                elif isinstance(value, dict) and set(value) == {"data", "count"}:
+                    self._state_values[key] = MaskedBuffer(_put(value["data"]), int(value["count"]))
                 else:
-                    self._state_values[key] = torch.as_tensor(value, device=self._device)
+                    self._state_values[key] = _put(value)
                 if self._update_count == 0:
                     self._update_count = 1  # loaded state counts as updated
             elif strict and self._persistent.get(key, False):
                 raise KeyError(f"Missing key {full!r} in state_dict")
         # a live metric may hold results computed before the load — drop them
         self._computed = None
+        self._cache = None
+        self._is_synced = False
 
     # ---------------------------------------------------------------- (de)serialization
 
@@ -409,6 +579,8 @@ class Metric(torch.nn.Module, ABC):
         cls = type(self)
         new = cls.__new__(cls)
         memo[id(self)] = new
+        # a copy syncs over the same process group (a group cannot be copied)
+        memo[id(self.process_group)] = self.process_group
         new.__setstate__(deepcopy(self.__getstate__(), memo))
         return new
 
@@ -537,6 +709,15 @@ class Metric(torch.nn.Module, ABC):
         return CompositionalMetric(lambda x: x[idx], self, None)
 
 
+def _map_state(value: Any, fn: Callable[[Tensor], Tensor]) -> Any:
+    """``fn`` on every tensor of a state value (a tensor, a list of them or a buffer)."""
+    if isinstance(value, list):
+        return [fn(v) for v in value]
+    if isinstance(value, MaskedBuffer):
+        return value.map(fn)
+    return fn(value)
+
+
 def _neg(x: Tensor) -> Tensor:
     return -torch.abs(x)
 
@@ -569,6 +750,9 @@ class CompositionalMetric(Metric):
         self.op = operator
         self.metric_a = _as_operand(metric_a)
         self.metric_b = _as_operand(metric_b)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # children sync themselves
 
     def _wrapped_compute(self) -> Any:
         # no cache and no sync at the composite's level: children run their own

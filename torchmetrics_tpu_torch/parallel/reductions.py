@@ -1,8 +1,8 @@
 """Reduction vocabulary for metric states.
 
 Counterpart of ``torchmetrics_tpu/parallel/reductions.py``: each tag says how a
-state merges pairwise (``forward``'s reduce-state path) and, once cross-process
-sync is ported, how it reduces across processes.
+state merges pairwise (``forward``'s reduce-state path) and how it reduces across
+processes (``parallel/sync.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.utils.data import safe_divide
 
 
@@ -64,6 +65,9 @@ def merge_states(
     if reduction == Reduction.MIN:
         return torch.minimum(old, new)
     if reduction == Reduction.CAT:
+        if isinstance(old, MaskedBuffer) and isinstance(new, MaskedBuffer):
+            # the batch buffer's valid prefix is appended to the global buffer
+            return old.append(new.values())
         if not isinstance(old, list) and not isinstance(new, list):
             return torch.cat([torch.atleast_1d(old), torch.atleast_1d(new)])
         old_list = old if isinstance(old, list) else [old]

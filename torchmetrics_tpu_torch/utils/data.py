@@ -1,4 +1,5 @@
-"""Tensor utilities: dim-zero concatenation, one-hot, top-k selection, safe division.
+"""Tensor utilities: dim-zero concatenation, dict flattening, one-hot, top-k selection,
+safe division.
 
 Counterpart of ``torchmetrics_tpu/utils/data.py``. The JAX package's ``first_argmax``
 works around a slow minor-axis reduce of XLA on the CPU; here it is ``torch.argmax``,
@@ -28,6 +29,23 @@ def dim_zero_cat(x: Union[Tensor, List[Tensor], tuple]) -> Tensor:
     if not x:
         raise ValueError("No samples to concatenate")
     return torch.cat([torch.atleast_1d(v) for v in x], dim=0)
+
+
+def _flatten_dict(x: dict) -> tuple[dict, bool]:
+    """Flatten a dict of dicts one level; returns (flat, whether a key came twice)."""
+    new_dict = {}
+    duplicates = False
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if k in new_dict:
+                    duplicates = True
+                new_dict[k] = v
+        else:
+            if key in new_dict:
+                duplicates = True
+            new_dict[key] = value
+    return new_dict, duplicates
 
 
 def first_argmax(x: Tensor, dim: int = -1) -> Tensor:
