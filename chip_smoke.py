@@ -38,7 +38,24 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    between, then one profile of each grouped loop. Integer states and every value of a
    group of two or more must be bitwise the per-metric loop's; other floats within
    the classification tolerance.
-7. ``collection_sync``: two ranks in one gloo world on the one card
+7. ``pipeline_eval``: both eval loops' grouped collections three ways, in three
+   alternating rounds: the collection's eager loop, ``MetricPipeline`` with ``fuse=1``
+   (one CUDA-graph replay a step) and with ``fuse=8`` (one replay a chunk of 8; K1,
+   K2 and K3 inside the graph), each captured by its warmup before the clock starts.
+   It prints µs per step, graph replays and host dispatches per batch, K1/K2/K3
+   launches per step counted through replays, the captured variants and capture
+   seconds of each pipeline, the peak device memory of the fused ImageNet run, and
+   after every timing a profile's device busy share of each. It fails unless both
+   pipelines' profiles hold as many K1, K2 and K3 device kernels as their replays
+   counted (launches per step times the profiled steps; a trace short of one is taken
+   again, twice at most), both
+   pipelines equal the eager loop on the card (integers exactly, floats within the
+   classification tolerance), the fused one equals its CPU run on a prefix of 12
+   ImageNet and 5 CTR batches, the replays equal the chunks with no capture, degraded
+   chunk or eager batch in the loop, and a fault run (NaN put into ImageNet batches
+   13 and 42 under the ``quarantine`` policy) quarantines exactly those update
+   indices, replays their two chunks per batch and equals the eager loop without them.
+8. ``collection_sync``: two ranks in one gloo world on the one card
    (``torch.multiprocessing`` spawn, a timeout on the rendezvous and on each
    collective, one on the whole world). Each rank makes the full seeded data, updates
    a grouped and an ungrouped collection with every other batch on ``cuda:0`` and
@@ -49,17 +66,17 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    (``sync_state`` of the leaders' states). Both ranks' synced values and states must equal the single-process
    collection's over all the data (integers exactly, floats within the
    classification tolerance); a rank that fails or hangs fails the run.
-8. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+9. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
-9. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+10. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-10. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+11. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
@@ -92,6 +109,12 @@ since they were ported, so a copy of this script run from the root of an earlier
 revision's checkout times that revision: running earlier, this, this, earlier on one
 card compares two revisions.
 
+    python3 chip_smoke.py --pipeline-eval
+
+builds the kernels and prints only the ``pipeline_eval`` phase's line (its checks
+included), so that two revisions of the capture cache and the pipeline are compared
+the same way: earlier, this, this, earlier on one card.
+
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
 its operations over the float32 rate of the data sheet (an FMA counting two).
 """
@@ -104,6 +127,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (an FMA counts two)
@@ -954,6 +978,272 @@ def collection_eval_phase() -> tuple:
     return {"phase": "collection_eval", "sets": sets, "launches": launches}, reference
 
 
+# ------------------------------------------------------------------- pipeline
+
+# the fused chunk of the third variant, and the two faulted ImageNet batches (chunks 1
+# and 5 of 8) of the fault run
+PIPELINE_FUSE = 8
+PIPELINE_ROUNDS = 3
+PIPELINE_FAULTS = (13, 42)
+# batches of each set that the card's fused pipeline and the CPU's run alike: a full
+# chunk and a padded one (ImageNet 8 + 4; CTR 5, padded to 8)
+PIPELINE_CPU_BATCHES = {"imagenet": 12, "binary": 5}
+PIPELINE_VARIANTS = ("eager", "fuse_1", "fuse_8")
+
+
+def release_graphs() -> None:
+    """Free the CUDA graphs (and their memory pools) of the pipelines just dropped: a
+    pipeline's fused function refers to the pipeline, so only the collector frees it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def batches_of(preds, target, batch: int, count: int | None = None) -> list:
+    steps = -(-preds.shape[0] // batch)
+    return [(preds[i * batch:(i + 1) * batch], target[i * batch:(i + 1) * batch]) for i in range(steps)][:count]
+
+
+def pipeline_run(metrics_fn, device: str, batches: list, variant: str) -> dict:
+    """One pass of a variant over ``batches`` with fresh metrics: ``eager`` is the
+    grouped collection's own loop, ``fuse_1`` and ``fuse_8`` a MetricPipeline over it,
+    captured by its warmup before the clock starts. Launch counts are zeroed just before
+    the timed pass and read just after; the wall clock covers the pass and ``compute``
+    and ends in a synchronise."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.ops import kernels
+
+    col = MetricCollection(metrics_fn(device))
+    pipe, manifest = None, None
+    if variant != "eager":
+        pipe = MetricPipeline(col, PipelineConfig(fuse=1 if variant == "fuse_1" else PIPELINE_FUSE))
+        manifest = pipe.warmup(*batches[0])
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if pipe is None:
+        for p, t in batches:
+            col.update(p, t)
+    else:
+        pipe.run(batches)
+    values = col.compute()
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"seconds": seconds, "launches": dict(kernels.LAUNCHES), "values": values,
+           "states": to_cpu(collection_states(col)), "col": col}
+    if pipe is not None:
+        report, info = pipe.report(), pipe.cache_info()
+        out.update({
+            "report": report.asdict(), "replays": sum(i["replays"] for i in info),
+            "misses_in_loop": sum(i["misses"] for i in info),
+            "variants": manifest["variants"], "capture_s": manifest["total_compile_seconds"], "pipe": pipe,
+        })
+    return out
+
+
+# the device kernels of K1, K2 and K3 by a part of their names (their .cu sources)
+DEVICE_KERNEL_NAMES = {"confusion_matrix": "confusion_matrix_", "binned_curve_counts": "curve_",
+                       "weighted_bincount": "weighted_bincount_kernel"}
+
+
+def profile_pipeline(metrics_fn, batches: list, variant: str) -> dict:
+    """A torch.profiler trace of one variant's pass over ``batches`` after its warmup:
+    device time per step, the busy share of the wall clock, and the K1/K2/K3 device
+    kernels the trace holds beside the launches the wrappers counted in the pass (for a
+    pipeline, through its replays)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.ops import kernels
+
+    col = MetricCollection(metrics_fn("cuda"))
+    if variant == "eager":
+        def loop():
+            for p, t in batches:
+                col.update(p, t)
+        loop()
+        col.reset()
+    else:
+        pipe = MetricPipeline(col, PipelineConfig(fuse=1 if variant == "fuse_1" else PIPELINE_FUSE))
+        pipe.warmup(*batches[0])
+
+        def loop():
+            pipe.run(batches)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = {k: kernels.LAUNCHES[k] for k in COLLECTION_KERNELS}
+    device_us, events, traced_kernels = 0.0, 0, {k: 0 for k in COLLECTION_KERNELS}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += us
+            events += e.count
+            for k in COLLECTION_KERNELS:
+                if DEVICE_KERNEL_NAMES[k] in e.key:
+                    traced_kernels[k] += e.count
+    steps = len(batches)
+    return {"steps": steps, "wall_ms_per_step": wall / steps * 1e3, "device_ms_per_step": device_us / steps / 1e3,
+            "device_busy_share": device_us / 1e6 / wall if wall else None, "device_events": events,
+            "counted_launches": counted, "traced_kernels": traced_kernels}
+
+
+def pipeline_fault_run(batches: list) -> dict:
+    """ImageNet through the fused pipeline under the ``quarantine`` policy with NaN put
+    into two batches: exactly those two update indices must be quarantined, their two
+    chunks replayed per batch, and the state must equal the eager loop without them."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.robust import error_policy, faults
+
+    col = MetricCollection(imagenet_metrics("cuda"))
+    dump_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "flight")
+    pipe = MetricPipeline(col, PipelineConfig(fuse=PIPELINE_FUSE, flight_dump_dir=dump_dir))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with error_policy("quarantine"), faults.inject_nan_updates(indices=PIPELINE_FAULTS):
+            report = pipe.run(batches)
+    values = col.compute()
+    leaders = [members[0] for members in col.compute_groups.values()]
+    quarantined = {name: [q["update_index"] for q in col[name].quarantined_batches] for name in leaders}
+    for name, indices in quarantined.items():
+        if indices != list(PIPELINE_FAULTS):
+            raise AssertionError(f"pipeline_eval fault run: {name} quarantined {indices}, not {list(PIPELINE_FAULTS)}")
+    if report.chunks_replayed != len(PIPELINE_FAULTS) or report.replayed_batches != PIPELINE_FUSE * 2:
+        raise AssertionError(f"pipeline_eval fault run: {report.chunks_replayed} chunks and"
+                             f" {report.replayed_batches} batches replayed, not 2 chunks of {PIPELINE_FUSE}")
+    clean = MetricCollection(imagenet_metrics("cuda"))
+    for i, (p, t) in enumerate(batches):
+        if i not in PIPELINE_FAULTS:
+            clean.update(p, t)
+    # the guarded leaders' state_dicts also carry their guard counters (`__robust__`)
+    states = {m: {k: v for k, v in st.items() if k != "__robust__"} for m, st in collection_states(col).items()}
+    state_gap = compare(to_cpu(states), to_cpu(collection_states(clean)), "fault.state")
+    value_gap = compare(to_cpu(values), to_cpu(clean.compute()), "fault.value")
+    return {"faulted_batches": list(PIPELINE_FAULTS), "quarantined": quarantined,
+            "chunks_replayed": report.chunks_replayed, "replayed_batches": report.replayed_batches,
+            "fused_batches": report.fused_batches, "flight_dumps": len(pipe.flight_dumps),
+            "max_state_float_gap": state_gap, "max_value_float_gap": value_gap}
+
+
+def pipeline_eval_phase() -> dict:
+    """Both eval loops as one grouped MetricCollection three ways, in alternating rounds:
+    its own eager loop, a MetricPipeline with fuse=1 (one graph replay a step) and one
+    with fuse=8 (one replay a chunk). Fails unless the pipelines equal the eager loop on
+    the card, the fused one equals its CPU run on a prefix, every batch of a pipeline
+    went through a replay (the replay count equals the chunk count, no miss and no
+    degraded chunk in the loop), and the fault run quarantines exactly its batches.
+    Profiles and peak memory come after every timing."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    sets, data, launches = {}, {}, {name: 0 for name in kernels.LAUNCHES}
+    for kind, metrics_fn, data_fn, batch, _ in COLLECTION_SETS:
+        preds, target = data[kind] = data_fn()
+        batches = batches_of(preds, target, batch)
+        steps = len(batches)
+        chunks = {"eager": steps, "fuse_1": steps, "fuse_8": -(-steps // PIPELINE_FUSE)}
+        us, runs = {v: [] for v in PIPELINE_VARIANTS}, {}
+        for rnd in range(PIPELINE_ROUNDS):
+            order = PIPELINE_VARIANTS if rnd % 2 == 0 else PIPELINE_VARIANTS[::-1]
+            for variant in order:
+                run = pipeline_run(metrics_fn, "cuda", batches, variant)
+                us[variant].append(run["seconds"] / steps * 1e6)
+                if variant != "eager":
+                    report = run["report"]
+                    if run["replays"] != chunks[variant] or run["misses_in_loop"]:
+                        raise AssertionError(f"pipeline_eval {kind} {variant}: {run['replays']} replays and"
+                                             f" {run['misses_in_loop']} captures in the loop for {chunks[variant]}"
+                                             " chunks")
+                    if report["chunks_replayed"] or (variant == "fuse_8" and report["eager_batches"]):
+                        raise AssertionError(f"pipeline_eval {kind} {variant}: a chunk degraded or a batch went eager")
+                run.pop("pipe", None)
+                run.pop("col")
+                runs.setdefault(variant, run)
+                release_graphs()
+        eager = runs["eager"]
+        for kernel in COLLECTION_KERNELS:
+            if runs["fuse_8"]["launches"][kernel] <= 0:
+                raise AssertionError(f"pipeline_eval {kind}: kernel {kernel} never launched through a replay")
+        for name in launches:
+            launches[name] += runs["fuse_8"]["launches"][name]
+        gaps = {}
+        for variant in ("fuse_1", "fuse_8"):
+            gaps[variant] = {
+                "state": max(compare(runs[variant]["states"][m], eager["states"][m], f"{variant}.state.{m}")
+                             for m in eager["states"]),
+                "value": compare(to_cpu(runs[variant]["values"]), to_cpu(eager["values"]), f"{variant}.value"),
+                "bitwise_states": all(bitwise_equal(list(runs[variant]["states"][m].values()),
+                                                    list(eager["states"][m].values())) for m in eager["states"]),
+            }
+        prefix = batches[:PIPELINE_CPU_BATCHES[kind]]
+        card = pipeline_run(metrics_fn, "cuda", prefix, "fuse_8")
+        cpu = pipeline_run(metrics_fn, "cpu", [(p.cpu(), t.cpu()) for p, t in prefix], "fuse_8")
+        release_graphs()
+        cpu_gap = max(compare(card["states"][m], cpu["states"][m], f"cpu.state.{m}") for m in cpu["states"])
+        cpu_gap = max(cpu_gap, compare(to_cpu(card["values"]), cpu["values"], "cpu.value"))
+        sets[kind] = {
+            "samples": int(preds.shape[0]), "batch": batch, "steps": steps, "fuse": PIPELINE_FUSE,
+            "us_per_step": us, "us_per_step_mean": {v: statistics.mean(x) for v, x in us.items()},
+            "us_per_step_median": {v: statistics.median(x) for v, x in us.items()},
+            "replays_per_batch": {v: runs[v]["replays"] / steps for v in ("fuse_1", "fuse_8")},
+            "host_dispatches_per_batch": {v: runs[v]["report"]["dispatches_per_batch"] for v in ("fuse_1", "fuse_8")},
+            "launches_per_step": {v: {k: runs[v]["launches"][k] / steps for k in COLLECTION_KERNELS}
+                                  for v in PIPELINE_VARIANTS},
+            "captured_variants": {v: runs[v]["variants"] for v in ("fuse_1", "fuse_8")},
+            "capture_s": {v: runs[v]["capture_s"] for v in ("fuse_1", "fuse_8")},
+            "padded_steps": runs["fuse_8"]["report"]["padded_steps"], "float_gaps": gaps,
+            "cpu_compared_batches": len(prefix), "max_cpu_float_gap": cpu_gap,
+        }
+    imagenet_batches = batches_of(*data["imagenet"], COLLECTION_SETS[0][3])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    pipeline_run(imagenet_metrics, "cuda", imagenet_batches, "fuse_8")
+    sets["imagenet"]["peak_mb_fuse_8"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    release_graphs()
+    fault = pipeline_fault_run(imagenet_batches)
+    release_graphs()
+    # profiles after every timing: a process that has run the profiler is slower afterwards
+    for kind, metrics_fn, _, batch, profile_steps in COLLECTION_SETS:
+        batches = batches_of(*data.pop(kind), batch, count=2 * PIPELINE_FUSE)
+        sets[kind]["profile"] = profiles = {v: profile_pipeline(metrics_fn, batches, v) for v in PIPELINE_VARIANTS}
+        for variant in ("fuse_1", "fuse_8"):
+            # the replay-counted launches must be kernels the card ran; a trace may drop
+            # a kernel (the eager loop's once dropped one of 32) but never adds one, so
+            # up to two more traces are taken before the run fails
+            per_step = sets[kind]["launches_per_step"][variant]
+            want = {k: round(per_step[k] * len(batches)) for k in COLLECTION_KERNELS}
+            got = profiles[variant]
+            for _ in range(2):
+                if got["counted_launches"] == want and got["traced_kernels"] == want:
+                    break
+                again = profile_pipeline(metrics_fn, batches, variant)
+                if sum(again["traced_kernels"].values()) > sum(got["traced_kernels"].values()):
+                    got = profiles[variant] = again
+            if got["counted_launches"] != want or got["traced_kernels"] != want:
+                raise AssertionError(f"pipeline_eval {kind} {variant}: over {len(batches)} profiled steps the"
+                                     f" wrappers counted {got['counted_launches']} and the trace holds"
+                                     f" {got['traced_kernels']} K1/K2/K3 kernels, not {want}")
+    return {"phase": "pipeline_eval", "sets": sets, "fault_run": fault, "launches": launches}
+
+
 def free_port() -> int:
     import socket
 
@@ -1513,6 +1803,11 @@ def main() -> int:
     if "--kernel-times" in sys.argv[1:]:
         emit({**kernel_times(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__))})
         return 0
+    if "--pipeline-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**pipeline_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
     t0 = time.perf_counter()
     records = [kernel_record_confusion_matrix(1 << 20, c, seed=c, main_path=False) for c in (10, 100, 1000)]
     # the ImageNet step's stat scores: argmax's int64 preds beside int32 targets
@@ -1565,6 +1860,10 @@ def main() -> int:
     collection, reference = collection_eval_phase()
     phases.append(collection)
     emit({**collection, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    pipeline = pipeline_eval_phase()
+    phases.append(pipeline)
+    emit({**pipeline, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     sync = collection_sync_phase(reference)
     phases.append(sync)

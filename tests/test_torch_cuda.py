@@ -1027,3 +1027,327 @@ def test_a_grouped_imagenet_step_launches_the_confusion_matrix_twice(card):
     assert launches["grouped"]["weighted_bincount"] == launches["per_metric"]["weighted_bincount"] == 1
     (ran,) = _traced_in_a_new_process("grouped_imagenet_step", [500])
     assert sum(n for name, n in ran.items() if "confusion_matrix" in name) == 2, ran
+
+
+# ------------------------------------------------------------- CUDA graph capture
+
+# Each kernel's wrapper captured in a torch.cuda.CUDAGraph and replayed on fresh inputs
+# copied into the captured ones: the cooperative launches of K1 and K4 (grid barrier),
+# K2's and K3's last-block tickets (their scratch must be left zero for the next
+# replay), K5's opted-in shared memory. The wrapper runs once on the capture stream
+# before the capture, so that its scratch and its function attributes exist by then.
+GRAPH_CASES = {
+    "confusion_matrix_one_block": ("confusion_matrix", (4096, 10)),
+    "confusion_matrix_slots": ("confusion_matrix", (1 << 18, 10)),  # cooperative, slots merged after grid.sync()
+    "confusion_matrix_zeroed": ("confusion_matrix", (1 << 18, 1000)),  # cooperative, output zeroed in the launch
+    "binned_curve_counts": ("binned_curve_counts", (1 << 18, 1000)),  # last-block ticket
+    "binned_curve_counts_one_block": ("binned_curve_counts", (3000, 200)),
+    "weighted_bincount": ("weighted_bincount", (1 << 18, 15)),  # last-block ticket
+    "weighted_bincount_one_block": ("weighted_bincount", (500, 15)),
+    "bincount_slots": ("bincount", (1 << 18, 6980)),  # cooperative, slots merged after grid.sync()
+    "bincount_atomics": ("bincount", (1 << 18, 1 << 16)),  # cooperative, output zeroed, global atomics
+    "ssim_moments": ("ssim_moments", (12, 266, 266)),
+}
+
+
+def _graph_inputs(kernel: str, shape: tuple, seed: int) -> tuple:
+    """CPU inputs of one call of ``kernel`` at ``shape``."""
+    if kernel == "confusion_matrix":
+        return _labels(shape[0], shape[1], seed=seed)
+    if kernel == "binned_curve_counts":
+        return _curve(shape[0], shape[1], seed=seed)
+    if kernel == "weighted_bincount":
+        return _weighted(shape[0], 3, shape[1], seed=seed)
+    if kernel == "bincount":
+        return (_bincount_ids(shape[0], shape[1], seed=seed),)
+    p, t = _planes(*shape, seed=seed)
+    w = _window("gauss", 11, 1.5)
+    return p, t, w, w
+
+
+def _graph_call(kernel: str, shape: tuple):
+    """(the wrapper's call on the inputs, its plain version)."""
+    if kernel == "confusion_matrix":
+        c = shape[1]
+        return (lambda p, t, v: kernels.confusion_matrix(p, t, v, c),
+                lambda p, t, v: kernels.confusion_matrix_plain(p, t, v, c))
+    if kernel == "binned_curve_counts":
+        return kernels.binned_curve_counts, kernels.binned_curve_counts_plain
+    if kernel == "weighted_bincount":
+        c = shape[1]
+        return (lambda x, w: kernels.weighted_bincount(x, w, c), lambda x, w: kernels.weighted_bincount_plain(x, w, c))
+    if kernel == "bincount":
+        c = shape[1]
+        return lambda x: kernels.bincount(x, None, c), lambda x: kernels.bincount_plain(x, c)
+    return kernels.ssim_moments, kernels.ssim_moments_plain
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_kernel_captured_in_a_graph_replays_as_its_plain_version(card, case):
+    kernel, shape = GRAPH_CASES[case]
+    call, plain = _graph_call(kernel, shape)
+    static = [a.to(card) for a in _graph_inputs(kernel, shape, seed=0)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call(*static)  # the scratch and the function attributes exist before the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(kernels.LAUNCHES)
+    with torch.cuda.graph(graph, stream=stream):
+        out = call(*static)
+    assert kernels.LAUNCHES[kernel] == before[kernel] + 1  # the wrapper counted the captured launch
+    for seed in (1, 2, 3):
+        fresh = _graph_inputs(kernel, shape, seed=seed)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = plain(*fresh)
+        if kernel == "ssim_moments":
+            torch.testing.assert_close(out.cpu(), want, atol=MOMENTS_ATOL, rtol=0)
+        elif kernel == "weighted_bincount":
+            torch.testing.assert_close(out.cpu(), want, rtol=WEIGHTED_RTOL, atol=0, equal_nan=True)
+        else:
+            assert torch.equal(out.cpu(), want), f"{case}: replay {seed}"
+
+
+def test_launches_are_counted_through_replays(card):
+    """A captured variant adds the launches its capture recorded at every replay."""
+    from torchmetrics_tpu_torch.core.jit import StaticLeafJit
+
+    def fn(state, preds, target, valid):
+        return state + kernels.confusion_matrix(preds, target, valid, 10)
+
+    cached = StaticLeafJit(fn)
+    state = torch.zeros((10, 10), dtype=torch.int32, device=card)
+    kernels.reset_launch_counts()
+    for seed in range(4):
+        p, t, v = (a.to(card) for a in _labels(1 << 16, 10, seed=seed))
+        state = cached(state, p, t, v)
+    torch.cuda.synchronize()
+    info = cached.cache_info()
+    assert (info["misses"], info["hits"], info["replays"]) == (1, 3, 4)
+    # the warm run before the capture launched the kernel once, each replay once
+    assert kernels.LAUNCHES["confusion_matrix"] == 1 + 4
+
+
+def _scratch_step(state, preds, target, valid, scores, labels, thresholds, ids, weights, classes, bins):
+    """K1 (cooperative slots past N = 8192), K2 and K3 (last-block tickets): the three
+    wrappers whose scratch the capture stream keeps."""
+    return (kernels.confusion_matrix(preds, target, valid, classes),
+            kernels.binned_curve_counts(scores, labels, valid, thresholds),
+            kernels.weighted_bincount(ids, weights, bins))
+
+
+def _scratch_inputs(n: int, classes: int, thresholds: int, bins: int, seed: int) -> tuple:
+    preds, target, valid = _labels(n, classes, seed=seed)
+    scores, labels, _, thr = _curve(n, thresholds, seed=seed)
+    ids, weights = _weighted(n, 3, bins, seed=seed)
+    return preds, target, valid, scores, labels, thr, ids, weights
+
+
+def _scratch_plain(inputs: tuple, classes: int, bins: int) -> tuple:
+    preds, target, valid, scores, labels, thr, ids, weights = inputs
+    return (kernels.confusion_matrix_plain(preds, target, valid, classes),
+            kernels.binned_curve_counts_plain(scores, labels, valid, thr),
+            kernels.weighted_bincount_plain(ids, weights, bins))
+
+
+def _assert_scratch_step(got: tuple, inputs: tuple, classes: int, bins: int, where: str) -> None:
+    want = _scratch_plain(inputs, classes, bins)
+    assert torch.equal(got[0].cpu(), want[0]), f"{where}: confusion matrix"
+    assert torch.equal(got[1].cpu(), want[1]), f"{where}: binned curve"
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=WEIGHTED_RTOL, atol=0)
+
+
+def test_graphs_replayed_from_two_streams_at_once_equal_their_plain_versions(card):
+    """Two capture caches whose graphs share the capture stream's scratch, called in turn
+    from two streams with no synchronise between the calls: every replay is ordered on
+    the capture stream, so none races another on K1's slots or K2's and K3's tickets."""
+    from torchmetrics_tpu_torch.core.jit import StaticLeafJit
+
+    shapes = {"a": (1 << 18, 10, 1000, 15), "b": (1 << 17, 10, 200, 15)}
+    caches = {name: StaticLeafJit(_scratch_step) for name in shapes}
+    streams = {name: torch.cuda.Stream() for name in shapes}
+    results = []
+    for step in range(6):
+        for name, (n, classes, thresholds, bins) in shapes.items():
+            inputs = _scratch_inputs(n, classes, thresholds, bins, seed=10 * step + len(name) + ord(name))
+            with torch.cuda.stream(streams[name]):
+                out = caches[name]((), *(a.to(card) for a in inputs), classes=classes, bins=bins)
+            results.append((f"{name} step {step}", out, inputs, classes, bins))
+    torch.cuda.synchronize()
+    for where, out, inputs, classes, bins in results:
+        _assert_scratch_step(out, inputs, classes, bins, where)
+    assert all(c.cache_info()["replays"] == 6 for c in caches.values())
+
+
+def test_a_graph_replays_right_after_its_scratch_grew_and_was_freed(card):
+    """A graph keeps the address of the scratch its capture used. A later capture that
+    needs more scratch on the same stream replaces it, and the allocator is then
+    emptied and filled with junk: the first graph still replays as its plain version
+    and writes none of the junk (the replaced scratch is kept, not freed)."""
+    from torchmetrics_tpu_torch.core.jit import StaticLeafJit, capture_stream
+
+    cache = StaticLeafJit(_scratch_step)
+    small, large = (16384, 10, 200, 15), (1 << 18, 100, 4000, 1000)
+    n, classes, thresholds, bins = small
+    first = _scratch_inputs(n, classes, thresholds, bins, seed=0)
+    _assert_scratch_step(cache((), *(a.to(card) for a in first), classes=classes, bins=bins), first, classes, bins,
+                         "capture")
+    stream = capture_stream(card)
+    sizes = {name: store[(card.index or 0, stream.cuda_stream)].numel()
+             for name, store in (("K1", kernels._CONFUSION_SCRATCH), ("K2", kernels._CURVE_SCRATCH),
+                                 ("K3", kernels._WEIGHTED_SCRATCH))}
+    n, classes, thresholds, bins = large
+    grown = _scratch_inputs(n, classes, thresholds, bins, seed=1)
+    _assert_scratch_step(cache((), *(a.to(card) for a in grown), classes=classes, bins=bins), grown, classes, bins,
+                         "larger capture")
+    for name, store in (("K1", kernels._CONFUSION_SCRATCH), ("K2", kernels._CURVE_SCRATCH),
+                        ("K3", kernels._WEIGHTED_SCRATCH)):
+        assert store[(card.index or 0, stream.cuda_stream)].numel() > sizes[name], f"{name}'s scratch did not grow"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = []
+    for on in (torch.cuda.current_stream(card), stream):
+        with torch.cuda.stream(on):
+            junk += [torch.full((cells,), 0x5A5A5A5A, dtype=torch.int32, device=card)
+                     for cells in (1024, 1600, 4096, 13200, 1 << 16) for _ in range(8)]
+    n, classes, thresholds, bins = small
+    for seed in (2, 3, 4):
+        inputs = _scratch_inputs(n, classes, thresholds, bins, seed=seed)
+        _assert_scratch_step(cache((), *(a.to(card) for a in inputs), classes=classes, bins=bins), inputs, classes,
+                             bins, f"replay {seed}")
+    torch.cuda.synchronize()
+    assert all(bool((j == 0x5A5A5A5A).all()) for j in junk), "a replay wrote into memory the allocator gave away"
+    assert cache.cache_info()["replays"] == 5
+
+
+def test_a_collection_inside_a_capture_frees_no_graph(card):
+    """A dropped pipeline's graphs are freed by the garbage collector (its fused function
+    refers to it). A collection inside another capture would destroy them there, a call
+    the capture forbids and fails on; the cache holds the collector off while it
+    captures. Here a graph in a reference cycle is garbage when a capture starts, and
+    the captured function asks for a collection at the next allocation."""
+    import gc
+
+    from torchmetrics_tpu_torch.core.jit import StaticLeafJit
+
+    def counts(state, preds, target, valid):
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1)
+        return state + kernels.confusion_matrix(preds, target, valid, 10)
+
+    class Cycle:
+        pass
+
+    p, t, v = (a.to(card) for a in _labels(4096, 10, seed=0))
+    want = kernels.confusion_matrix_plain(*_labels(4096, 10, seed=0), 10)
+    kernels.confusion_matrix(p, t, v, 10)  # loaded and warm before the first capture
+    state = torch.zeros((10, 10), dtype=torch.int32, device=card)
+    thresholds = gc.get_threshold()
+    try:
+        for _ in range(3):
+            gc.collect()
+            garbage = Cycle()
+            garbage.cycle, garbage.graph = garbage, torch.cuda.CUDAGraph()
+            with torch.cuda.graph(garbage.graph):
+                garbage.out = kernels.confusion_matrix(p, t, v, 10)
+            del garbage
+            state = StaticLeafJit(counts)(state, p, t, v)  # a new cache: a capture
+            gc.set_threshold(*thresholds)
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.equal(state.cpu(), 3 * want)
+
+
+def _pipeline_batches(kind: str, steps: int):
+    return _imagenet_batches(steps, n=64) if kind == "imagenet" else _binary_batches(steps, n=1 << 12)
+
+
+@pytest.mark.parametrize("fuse", [1, 4])
+@pytest.mark.parametrize("kind", ["imagenet", "binary"])
+def test_pipeline_on_the_card_equals_the_collection_loop(card, kind, fuse):
+    """chip_smoke.py's sets through MetricPipeline on the card: every batch one replay of
+    a captured graph (fuse=1) or one per chunk of up to four, padded tail included;
+    integer states and every value bitwise the eager collection loop's."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    make = _imagenet_set if kind == "imagenet" else _binary_set
+    batches = [(p.to(card), t.to(card)) for p, t in _pipeline_batches(kind, 7)]
+    eager, driven = MetricCollection(make(card)), MetricCollection(make(card))
+    for p, t in batches:
+        eager.update(p, t)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=fuse))
+    report = pipe.run(batches)
+    replays = sum(info["replays"] for info in pipe.cache_info())
+    assert replays == (7 if fuse == 1 else 2) and report.chunks_replayed == 0
+    for name in eager.keys(keep_base=True):
+        for key, want in eager[name].state_dict(persistent_only=False).items():
+            _assert_bitwise(driven[name].state_dict(persistent_only=False)[key], want, f"{name}.{key}")
+    got, want = driven.compute(), eager.compute()
+    for name in want:
+        _assert_bitwise(got[name], want[name], name)
+
+
+def test_a_state_held_across_a_replay_is_not_overwritten(card):
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    metric = tc.MulticlassAccuracy(1000, average="macro", validate_args=False)
+    pipe = MetricPipeline(metric, PipelineConfig(fuse=2))
+    batches = [(p.to(card), t.to(card)) for p, t in _imagenet_batches(4, n=64)]
+    for p, t in batches[:2]:
+        pipe.feed(p, t)
+    held, snapshot = metric.tp, metric.tp.clone()
+    for p, t in batches[2:]:
+        pipe.feed(p, t)
+    torch.cuda.synchronize()
+    assert torch.equal(held, snapshot)
+    assert not torch.equal(metric.tp, held)  # the second chunk moved the state
+    eager = tc.MulticlassAccuracy(1000, average="macro", validate_args=False)
+    for p, t in batches:
+        eager.update(p, t)
+    assert torch.equal(metric.tp, eager.tp) and torch.equal(metric.fn, eager.fn)
+
+
+def test_buffered_auroc_through_a_fused_pipeline_equals_its_eager_loop(card):
+    """A MaskedBuffer state through fused chunks: its write offset rides into the graph
+    as a device count; an overflow raises before the replay and leaves the state."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    batches = [(p.to(card), t.to(card)) for p, t in _binary_batches(6, n=1000)]
+    eager = tc.BinaryAUROC(buffer_capacity=6000, ignore_index=-1)
+    driven = tc.BinaryAUROC(buffer_capacity=6000, ignore_index=-1)
+    for p, t in batches:
+        eager.update(p, t)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=4))
+    pipe.run(batches)  # a chunk of 4 and a padded chunk of 2
+    assert driven.preds.count == eager.preds.count == 6000
+    for key in ("preds", "target", "valid"):
+        assert torch.equal(getattr(driven, key).data, getattr(eager, key).data), key
+    assert torch.equal(driven.compute(), eager.compute())
+
+    small = tc.BinaryAUROC(buffer_capacity=5000, ignore_index=-1)
+    pipe = MetricPipeline(small, PipelineConfig(fuse=2))
+    pipe.run(batches[:4])  # 4000 of 5000
+    replays = sum(info["replays"] for info in pipe.cache_info())
+    before = small.preds.data.clone()
+    with pytest.raises(ValueError, match="overflowed"):
+        pipe.run(batches[4:])  # 2000 more: refused before the replay
+    assert sum(info["replays"] for info in pipe.cache_info()) == replays
+    assert small.preds.count == 4000 and torch.equal(small.preds.data, before)
+
+
+def test_a_jit_update_metric_replays_its_capture_and_equals_eager(card):
+    batches = [(p.to(card), t.to(card)) for p, t in _imagenet_batches(3, n=64)]
+    eager = tc.MulticlassConfusionMatrix(1000, validate_args=False)
+    jitted = tc.MulticlassConfusionMatrix(1000, validate_args=True, jit_update=True)
+    for p, t in batches:
+        eager.update(p, t)
+        jitted.update(p, t)  # value checks run in the warm call, not in the capture
+    info = jitted._jitted_update.cache_info()
+    assert (info["misses"], info["hits"], info["replays"]) == (1, 2, 3)
+    assert torch.equal(jitted.confmat, eager.confmat)

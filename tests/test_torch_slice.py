@@ -183,7 +183,9 @@ def test_jax_state_keeps_dtypes_and_lists():
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
-        "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.convert, torchmetrics_tpu_torch.ops;"
+        "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.convert, torchmetrics_tpu_torch.ops,"
+        " torchmetrics_tpu_torch.engine, torchmetrics_tpu_torch.obs, torchmetrics_tpu_torch.robust,"
+        " torchmetrics_tpu_torch.utils.fileio;"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'torchmetrics_tpu' or m.startswith('torchmetrics_tpu.'));"
         "print(bad); sys.exit(1 if bad else 0)"

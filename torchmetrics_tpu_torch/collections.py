@@ -19,8 +19,10 @@ every member from the synced state. ``forward`` gives each member the value of i
 own ``compute`` on the leader's batch state, made by one more ``pure_update`` of the
 leader per group.
 
-The streaming engine's hooks (``_engine_*``), ``memory_footprint``, ``plot`` and the
-tenant scope come with the engine, observability and plotting slices.
+The streaming engine (``engine/pipeline.py``) folds a fused chunk through each group's
+leader once and commits the result to the whole group (``_engine_fusable_leaders``,
+``_engine_commit``). ``memory_footprint``, ``plot`` and the tenant scope come with
+the observability and plotting slices.
 """
 
 from __future__ import annotations
@@ -462,9 +464,40 @@ class MetricCollection(torch.nn.ModuleDict):
         for name, m in self._modules.items():
             m.load_state_dict(state_dict, prefix=f"{name}.", strict=strict)
 
+    def set_dtype(self, dst_type: torch.dtype) -> "MetricCollection":
+        """Cast the floating states of every metric."""
+        for m in self._modules.values():
+            m.set_dtype(dst_type)
+        self._sync_group_states()
+        return self
+
     def to_device(self, device: Union[str, torch.device]) -> "MetricCollection":
         """Move every metric's states to ``device`` (``.to(device)``)."""
         return self.to(device)
+
+    # ------------------------------------------------------------- engine integration
+
+    def _engine_fusable_leaders(self) -> Tuple[List[str], List[str]]:
+        """Partition the compute-group leaders for the streaming engine: fusable leaders
+        ride the fused chunk (one replay advances them all), the rest take per-batch
+        updates. Members hold their leader's state either way, as in :meth:`update`."""
+        fused, eager = [], []
+        for members in self._groups.values():
+            name = members[0]
+            (fused if self._modules[name]._engine_fusable() else eager).append(name)
+        return fused, eager
+
+    def _engine_commit(self, new_states: Dict[str, Dict[str, Any]], n_batches: int) -> None:
+        """Install fused-chunk results for the given leaders and bind them to the members.
+
+        Does what ``n_batches`` :meth:`update` calls would have done: every metric's
+        compute cache is dropped and every member holds its leader's new state.
+        """
+        for name, state in new_states.items():
+            self._modules[name]._engine_commit_state(state, n_batches)
+        for m in self._modules.values():
+            m._computed = None
+        self._sync_group_states()
 
     def __repr__(self) -> str:
         repr_str = type(self).__name__ + "("

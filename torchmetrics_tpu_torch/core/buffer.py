@@ -9,11 +9,19 @@ valid prefixes, in rank order, with one stable sort.
 
 In eager PyTorch the count is a Python int, always concrete, so an append past the
 capacity raises at once (the JAX package can only check after a jitted step).
+
+Inside a captured update (``core/jit.py``, the streaming engine) the count is a 0-d
+int64 tensor instead, as JAX's is an array: the write offset then rides into the CUDA
+graph as data, not as a constant of the capture. Such an append writes at ``count +
+arange(n)``, clamped to the last row (a write past the capacity cannot leave the
+buffer), and the host raises on the count read back after the call, before the state
+is committed (``Metric._host_buffers``). The tensor count of the last commit is kept
+as ``device_count``, so that the next captured call finds it again.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple, Union
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,9 +31,10 @@ Tensor = torch.Tensor
 class MaskedBuffer:
     """Append-only value buffer with a static capacity and a validity count."""
 
-    def __init__(self, data: Tensor, count: int) -> None:
+    def __init__(self, data: Tensor, count: Union[int, Tensor], device_count: Optional[Tensor] = None) -> None:
         self.data = data
-        self.count = int(count)
+        self.count = count if isinstance(count, Tensor) else int(count)
+        self.device_count = device_count
 
     @classmethod
     def create(
@@ -48,6 +57,9 @@ class MaskedBuffer:
         if batch.ndim == self.data.ndim - 1:
             batch = batch[None]
         n = batch.shape[0]
+        if isinstance(self.count, Tensor):  # inside a captured update
+            rows = (self.count + torch.arange(n, device=self.data.device)).clamp(max=self.capacity - 1)
+            return MaskedBuffer(self.data.index_copy(0, rows, batch), self.count + n)
         if self.count + n > self.capacity:
             raise ValueError(
                 f"MaskedBuffer overflow: capacity {self.capacity}, have {self.count}, appending {n}."
@@ -87,6 +99,16 @@ class MaskedBuffer:
     def map(self, fn: Callable[[Tensor], Tensor]) -> "MaskedBuffer":
         """The same buffer with ``fn`` applied to its data (``.to(device)``, a detach)."""
         return MaskedBuffer(fn(self.data), self.count)
+
+    def traced(self) -> "MaskedBuffer":
+        """This buffer with its count as a 0-d int64 tensor on the data's device (the
+        last commit's ``device_count`` when it still holds the count)."""
+        if isinstance(self.count, Tensor):
+            return self
+        count = self.device_count
+        if count is None:
+            count = torch.full((), self.count, dtype=torch.int64, device=self.data.device)
+        return MaskedBuffer(self.data, count)
 
     def __repr__(self) -> str:
         return f"MaskedBuffer(capacity={self.capacity}, count={self.count}, item={tuple(self.data.shape[1:])})"

@@ -22,9 +22,24 @@ PyTorch idiom inside:
   then restores the local state, as JAX's ``sync``/``unsync`` contract says.
 - A "cat" state is a Python list of tensors or a ``MaskedBuffer`` (fixed capacity).
 
-Error policies, quarantine, fault injection, the observability hooks, degrading a
-failed sync to local state (``sync_degraded`` stays ``False``) and the streaming
-engine's commit come with the slices that port them.
+- ``update`` runs eagerly unless the metric is built with ``jit_update=True``: then
+  it replays a CUDA graph of ``pure_update`` from the capture cache (``core/jit.py``),
+  one per static configuration and input signature. The streaming engine
+  (``engine/pipeline.py``) folds the updates of every metric without ragged list
+  states through that cache, unless the metric says ``jit_update=False``.
+- Error policies (``robust/policy.py``): with ``error_policy`` (or a global policy)
+  an update screens its inputs for non-finite values and rolls its state back on
+  any failure, then raises, skips or quarantines the batch; the counters
+  ``updates_ok``/``updates_skipped``/``updates_quarantined`` and ``last_update_ok``
+  track it, and ``state_dict`` carries them under ``__robust__`` once a guarded
+  update has run. Fault injection (``robust/faults.py``) applies at ``update`` and
+  ``forward``.
+- The ``metric.update``/``metric.forward``/``metric.compute`` spans and the
+  ``metric.reset``/``metric.compute_cached`` counters (``obs/trace.py``) cost one
+  branch while tracing is off.
+
+Degrading a failed sync to local state (``sync_degraded`` stays ``False``) comes with
+the robust plane; the tenant scope and the value timelines with the obs plane.
 """
 
 from __future__ import annotations
@@ -33,15 +48,25 @@ import inspect
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.trace as _trace
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
+from torchmetrics_tpu_torch.core.jit import jit_with_static_leaves
 from torchmetrics_tpu_torch.parallel.reductions import Reduction, merge_states
 from torchmetrics_tpu_torch.parallel.sync import distributed_available
 from torchmetrics_tpu_torch.parallel.sync import sync_state as _sync_state_fn
+from torchmetrics_tpu_torch.robust import faults as _faults
+from torchmetrics_tpu_torch.robust.policy import (
+    ErrorPolicy,
+    UpdateGuardError,
+    coerce_policy,
+    effective_policy,
+    first_nonfinite,
+)
 from torchmetrics_tpu_torch.utils.checks import _resolve_device
 from torchmetrics_tpu_torch.utils.exceptions import TorchMetricsUserError
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -51,6 +76,22 @@ Tensor = torch.Tensor
 _METRIC_PROTECTED_ATTRS = ("is_differentiable", "higher_is_better", "full_state_update")
 # the registry's marker for a MaskedBuffer default: (marker, capacity, item shape, dtype)
 _MASKED_BUFFER = "__masked_buffer__"
+# reserved state_dict key carrying the update-guard counters (the JAX package's);
+# cannot collide with states, whose names must be identifiers
+_ROBUST_STATE_KEY = "__robust__"
+
+
+def _host_copy(value: Any) -> Any:
+    """Host (numpy) copies of a quarantined batch's tensor leaves."""
+    if isinstance(value, tuple) and hasattr(value, "_fields"):  # NamedTuple batches
+        return type(value)(*(_host_copy(v) for v in value))
+    if isinstance(value, (list, tuple)):
+        return type(value)(_host_copy(v) for v in value)
+    if isinstance(value, dict):
+        return {k: _host_copy(v) for k, v in value.items()}
+    if isinstance(value, Tensor):
+        return value.detach().cpu().numpy()
+    return value
 
 
 class Metric(torch.nn.Module, ABC):
@@ -71,6 +112,14 @@ class Metric(torch.nn.Module, ABC):
             process group is initialised).
         sync_on_compute: whether ``compute`` syncs across processes (default True).
         compute_with_cache: cache the computed value until the next update or reset.
+        jit_update: ``True`` routes ``update`` through the capture cache (a CUDA graph
+            replay on the card); ``False`` keeps the metric out of the streaming
+            engine's fused chunks. Default ``None``: ``update`` runs eagerly and the
+            engine fuses the metric unless it holds ragged list states.
+        error_policy: what to do with a batch that fails its update guards —
+            ``"raise"`` | ``"warn_skip"`` | ``"quarantine"`` (``robust/policy.py``).
+            ``None`` (default) defers to the process-global policy; with neither
+            configured the update path is unguarded.
     """
 
     is_differentiable: Optional[bool] = None
@@ -86,6 +135,8 @@ class Metric(torch.nn.Module, ABC):
         self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
+        self._jit_update_flag = kwargs.pop("jit_update", None)
+        self.error_policy = coerce_policy(kwargs.pop("error_policy", None))
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
@@ -112,6 +163,19 @@ class Metric(torch.nn.Module, ABC):
         self._to_sync = self.sync_on_compute
         # set where a failed sync degrades to local state: the robust plane's, not ported
         self.sync_degraded = False
+
+        # update-guard counters (robust/policy.py): plain ints, free on the unguarded path
+        self.updates_ok = 0
+        self.updates_skipped = 0
+        self.updates_quarantined = 0
+        self.quarantine_dropped = 0
+        self.last_update_ok = True
+        self._quarantine: List[Dict[str, Any]] = []
+        # True once a guarded update has run: gates the __robust__ state_dict key, so a
+        # never-guarded metric writes the state_dict it always wrote
+        self._guards_engaged = False
+        # the capture cache of pure_update (jit_update=True), made at first use
+        self._jitted_update = None
 
         self._wrap_methods()
 
@@ -307,19 +371,193 @@ class Metric(torch.nn.Module, ABC):
 
     # ------------------------------------------------------------------------- update
 
+    def _jit_enabled(self) -> bool:
+        """Whether ``update`` replays the capture cache: only when asked for
+        (``jit_update=True``); the hopper guide's rule keeps a plain update eager."""
+        return bool(self._jit_update_flag)
+
     def _wrapped_update(self, *args: Any, **kwargs: Any) -> None:
         if self._is_synced:
             raise TorchMetricsUserError(
                 "The Metric has already been synced. HINT: call unsync() before modifying state."
             )
+        if _faults.update_faults_active() and not self.__dict__.get("_fault_applied", False):
+            args, kwargs = _faults.apply_update_fault(args, kwargs)
         self._computed = None
+        policy = effective_policy(self.error_policy)
+        if policy is None:
+            # unguarded path: no input screening, exceptions propagate
+            self._update_count += 1
+            try:
+                self._dispatch_update(*args, **kwargs)
+            except Exception:
+                self.last_update_ok = False
+                raise
+            self.updates_ok += 1
+            self.last_update_ok = True
+            return
+        self._guards_engaged = True
         self._update_count += 1
-        self._dispatch_update(*args, **kwargs)
+        try:
+            ok, err = self._guarded_dispatch(policy, args, kwargs)
+        except Exception:
+            self._update_count -= 1  # a failed batch never counts as an update
+            raise
+        if ok:
+            self.updates_ok += 1
+            self.last_update_ok = True
+            return
+        self._update_count -= 1  # a skipped batch never counts as an update
+        self._record_update_failure(policy, err, args, kwargs)
+
+    def _guarded_dispatch(self, policy: ErrorPolicy, args: tuple, kwargs: dict):
+        """Run one update under guards: validate inputs, dispatch, roll back on failure.
+
+        Returns ``(ok, error)``. Under the ``raise`` policy the failure (with state
+        already rolled back) propagates instead.
+        """
+        # states are never written in place, so a snapshot is the references; list
+        # states grow by append, so their containers are copied
+        snapshot = {k: (list(v) if isinstance(v, list) else v) for k, v in self._state_values.items()}
+        count_snapshot = self._update_count
+        try:
+            bad = first_nonfinite(args, kwargs)
+            if bad is not None:
+                raise UpdateGuardError(f"{type(self).__name__}.update received non-finite values in {bad}")
+            self._dispatch_update(*args, **kwargs)
+            return True, None
+        except Exception as err:
+            self.__dict__["_state_values"] = snapshot
+            self._update_count = count_snapshot
+            if policy is ErrorPolicy.RAISE:
+                self.last_update_ok = False
+                raise
+            return False, err
+
+    # retained quarantined batches are bounded: beyond this many, the oldest is
+    # dropped (counted in `quarantine_dropped`)
+    quarantine_max_batches: int = 16
+
+    def _record_update_failure(self, policy: ErrorPolicy, err: Exception, args: tuple, kwargs: dict) -> None:
+        """Book-keeping for a skipped/quarantined batch (state already rolled back)."""
+        self.last_update_ok = False
+        if policy is ErrorPolicy.QUARANTINE:
+            self.updates_quarantined += 1
+            self._quarantine.append(
+                {
+                    "args": _host_copy(args),
+                    "kwargs": _host_copy(kwargs),
+                    "reason": f"{type(err).__name__}: {err}",
+                    # position in the guarded update stream (0-based), stable across
+                    # both the update() and forward() entry points
+                    "update_index": self.updates_ok + self.updates_skipped + self.updates_quarantined - 1,
+                }
+            )
+            if len(self._quarantine) > self.quarantine_max_batches:
+                self._quarantine.pop(0)
+                self.quarantine_dropped += 1
+            verb = "quarantined"
+        else:
+            self.updates_skipped += 1
+            verb = "skipped"
+        if _trace.ENABLED:
+            _trace.inc(f"robust.update_{verb}", metric=type(self).__name__)
+        rank_zero_warn(
+            f"{type(self).__name__}.update failed and the batch was {verb}"
+            f" (policy={policy.value}): {err}. Accumulated state is unchanged;"
+            " the `updates_ok`/`updates_skipped`/`updates_quarantined` counters"
+            " track totals.",
+            RuntimeWarning,
+        )
+
+    @property
+    def quarantined_batches(self) -> List[Dict[str, Any]]:
+        """Host copies of batches rejected under the ``quarantine`` policy."""
+        return list(self._quarantine)
+
+    def clear_quarantine(self) -> None:
+        self._quarantine = []
 
     def _dispatch_update(self, *args: Any, **kwargs: Any) -> None:
-        """Run one update against the currently-bound state."""
+        """Run one update against the currently-bound state (a graph replay with
+        ``jit_update=True``). With tracing on, a ``metric.update`` span records the path."""
+        if _trace.ENABLED:
+            path = "jit" if self._jit_enabled() else "eager"
+            with _trace.span("metric.update", metric=type(self).__name__, path=path):
+                self._dispatch_update_inner(*args, **kwargs)
+            return
+        self._dispatch_update_inner(*args, **kwargs)
+
+    def _dispatch_update_inner(self, *args: Any, **kwargs: Any) -> None:
         args, kwargs = self._inputs_to_device(args, kwargs)
+        if self._jit_enabled():
+            if self._jitted_update is None:
+                self._jitted_update = jit_with_static_leaves(self.pure_update)
+            new = self._jitted_update(self._traced_state(), *args, **kwargs)
+            self._state_values = self._host_buffers(new)
+            return
         self._update_impl(*args, **kwargs)
+
+    def _traced_state(self) -> Dict[str, Any]:
+        """The bound state as a captured update takes it: ``MaskedBuffer`` counts as
+        0-d device tensors (``MaskedBuffer.traced``)."""
+        return {k: v.traced() if isinstance(v, MaskedBuffer) else v for k, v in self._state_values.items()}
+
+    def _host_buffers(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """``state`` with the tensor counts of its ``MaskedBuffer``s read back as ints
+        (one read for all of them); raises on a count past its capacity, before the
+        state is bound."""
+        traced = {k: v for k, v in state.items() if isinstance(v, MaskedBuffer) and isinstance(v.count, Tensor)}
+        if not traced:
+            return dict(state)
+        counts = torch.stack([v.count for v in traced.values()]).tolist()
+        out = dict(state)
+        for (key, buf), count in zip(traced.items(), counts):
+            if count > buf.capacity:
+                raise ValueError(
+                    f"MaskedBuffer state {key!r} overflowed: capacity {buf.capacity}, count {count}."
+                    " Construct the metric with a larger buffer capacity; the state was not updated."
+                )
+            out[key] = MaskedBuffer(buf.data, count, device_count=buf.count)
+        return out
+
+    def _check_buffer_overflow(self) -> None:
+        """Raise if a ``MaskedBuffer`` state's count exceeds its capacity (the eager
+        append and the captured commit raise first; this is the JAX package's
+        backstop, kept for its callers)."""
+        for key, value in self._state_values.items():
+            if isinstance(value, MaskedBuffer) and not isinstance(value.count, Tensor) and value.count > value.capacity:
+                raise ValueError(
+                    f"MaskedBuffer state {key!r} overflowed: capacity {value.capacity}, count {value.count}."
+                )
+
+    # ------------------------------------------------------------- engine integration
+
+    def _engine_fusable(self) -> bool:
+        """Whether the streaming engine may fold this metric's updates into a fused
+        chunk: not ``jit_update=False``, and no ragged list states (a chunk's state
+        needs a fixed structure across steps)."""
+        return self._jit_update_flag is not False and not any(isinstance(v, list) for v in self._defaults.values())
+
+    def _engine_commit_state(self, state: Dict[str, Any], n_batches: int) -> None:
+        """Install a fused-chunk result as the accumulated state.
+
+        The engine advanced ``n_batches`` updates in one replay; this does to the
+        lifecycle counters what ``n_batches`` successful ``update`` calls would have
+        done, so quarantine indices and ``update_count`` stay consistent with the
+        per-batch path. A ``MaskedBuffer`` count past its capacity raises here, before
+        anything is installed.
+        """
+        if self._is_synced:
+            raise TorchMetricsUserError(
+                "The Metric has already been synced. HINT: call unsync() before modifying state."
+            )
+        state = self._host_buffers(state)
+        self._computed = None
+        self.__dict__["_state_values"] = state
+        self._update_count += n_batches
+        self.updates_ok += n_batches
+        self.last_update_ok = True
 
     # ------------------------------------------------------------------------ forward
 
@@ -330,13 +568,31 @@ class Metric(torch.nn.Module, ABC):
         the global state pairwise. Full-state path (``full_state_update=True`` or
         unknown, or ``dist_sync_on_step``): update the global state, then replay the
         batch on a fresh state for the batch value. The batch value syncs across
-        processes only with ``dist_sync_on_step``.
+        processes only with ``dist_sync_on_step``. A batch that a guard skipped has
+        no batch value (``None``).
         """
         if self._is_synced:
             raise TorchMetricsUserError("The Metric shouldn't be synced when performing `forward`.")
-        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
-            return self._forward_full_state_update(*args, **kwargs)
-        return self._forward_reduce_state_update(*args, **kwargs)
+        if _faults.update_faults_active() and not self.__dict__.get("_fault_applied", False):
+            # injected faults apply ONCE per forward call, at the outermost entry, so
+            # the accumulate pass and the batch replay see the SAME arguments
+            args, kwargs = _faults.apply_update_fault(args, kwargs)
+            self.__dict__["_fault_applied"] = True
+            try:
+                return self._forward_dispatch(*args, **kwargs)
+            finally:
+                self.__dict__["_fault_applied"] = False
+        return self._forward_dispatch(*args, **kwargs)
+
+    def _forward_dispatch(self, *args: Any, **kwargs: Any) -> Any:
+        full = self.full_state_update or self.full_state_update is None or self.dist_sync_on_step
+        forward_fn = self._forward_full_state_update if full else self._forward_reduce_state_update
+        if _trace.ENABLED:
+            with _trace.span(
+                "metric.forward", metric=type(self).__name__, path="full_state" if full else "reduce_state"
+            ):
+                return forward_fn(*args, **kwargs)
+        return forward_fn(*args, **kwargs)
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         self.update(*args, **kwargs)
@@ -347,9 +603,13 @@ class Metric(torch.nn.Module, ABC):
         self._state_values = self._fresh_state()
         self._update_count = 1
         try:
-            self._computed = None
-            self._dispatch_update(*args, **kwargs)
-            batch_val = self.compute()
+            batch_val = None
+            if self.last_update_ok:
+                # the guarded accumulate above succeeded, so this replay of the same
+                # arguments is neither guarded nor counted again
+                self._computed = None
+                self._dispatch_update(*args, **kwargs)
+                batch_val = self.compute()
         finally:
             self._restore_after_forward(global_state, global_count)
         return batch_val
@@ -363,14 +623,34 @@ class Metric(torch.nn.Module, ABC):
         self._should_unsync = False
         self._computed = None
         try:
-            self._dispatch_update(*args, **kwargs)
-            batch_val = self.compute()
+            batch_ok = self._update_once(*args, **kwargs)
+            batch_val = self.compute() if batch_ok else None
         except Exception:
             self._restore_after_forward(global_state, global_count)
             raise
+        if not batch_ok:  # a skipped batch contributes nothing to the global state
+            self._restore_after_forward(global_state, global_count)
+            return None
         merged = self._reduce_states(global_state, dict(self._state_values), global_count)
         self._restore_after_forward(merged, global_count + 1)
         return batch_val
+
+    def _update_once(self, *args: Any, **kwargs: Any) -> bool:
+        """One update against the bound (batch) state under the metric's policy;
+        returns whether it landed (the guards skip and quarantine here too)."""
+        policy = effective_policy(self.error_policy)
+        if policy is None:
+            self._dispatch_update(*args, **kwargs)
+            ok, err = True, None
+        else:
+            self._guards_engaged = True
+            ok, err = self._guarded_dispatch(policy, args, kwargs)
+        if ok:
+            self.updates_ok += 1
+            self.last_update_ok = True
+        else:
+            self._record_update_failure(policy, err, args, kwargs)
+        return ok
 
     def _restore_after_forward(self, state: Dict[str, Any], count: int) -> None:
         """Bind the global state again and leave the sync flags as ``compute`` wants them."""
@@ -474,14 +754,23 @@ class Metric(torch.nn.Module, ABC):
                 UserWarning,
             )
         if self.compute_with_cache and self._computed is not None:
+            if _trace.ENABLED:
+                _trace.inc("metric.compute_cached", metric=type(self).__name__)
             return self._computed
-        with self.sync_context(
-            dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
-        ):
-            value = _squeeze_if_scalar(self._compute_impl())
+        if _trace.ENABLED:
+            with _trace.span("metric.compute", metric=type(self).__name__):
+                value = self._compute_synced_value()
+        else:
+            value = self._compute_synced_value()
         if self.compute_with_cache:
             self._computed = value
         return value
+
+    def _compute_synced_value(self) -> Any:
+        with self.sync_context(
+            dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+        ):
+            return _squeeze_if_scalar(self._compute_impl())
 
     # ------------------------------------------------------------------------- others
 
@@ -494,7 +783,16 @@ class Metric(torch.nn.Module, ABC):
         """Compute the metric value from accumulated state."""
 
     def reset(self) -> None:
-        """Reset state to defaults."""
+        """Reset state to defaults (and the update-guard counters)."""
+        if _trace.ENABLED:
+            _trace.inc("metric.reset", metric=type(self).__name__)
+        self.updates_ok = 0
+        self.updates_skipped = 0
+        self.updates_quarantined = 0
+        self.quarantine_dropped = 0
+        self.last_update_ok = True
+        self._quarantine = []
+        self._guards_engaged = False
         self._update_count = 0
         self._computed = None
         self._cache = None
@@ -534,6 +832,14 @@ class Metric(torch.nn.Module, ABC):
                 }
             else:
                 destination[prefix + key] = _map_state(value, Tensor.detach)
+        # the update-guard counters round-trip once a guarded update has run; a
+        # never-guarded metric's state_dict is the one it always was
+        if self._guards_engaged:
+            destination[prefix + _ROBUST_STATE_KEY] = torch.tensor(
+                [self.updates_ok, self.updates_skipped, self.updates_quarantined, int(self.last_update_ok),
+                 self.quarantine_dropped],
+                dtype=torch.int64,
+            )
         return destination
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:  # type: ignore[override]
@@ -546,6 +852,14 @@ class Metric(torch.nn.Module, ABC):
         def _put(v):
             return torch.as_tensor(v, device=self._device)
 
+        robust_key = prefix + _ROBUST_STATE_KEY
+        if robust_key in state_dict:
+            vals = [int(v) for v in torch.as_tensor(state_dict[robust_key]).reshape(-1).tolist()]
+            vals += [0] * (5 - len(vals))
+            self.updates_ok, self.updates_skipped, self.updates_quarantined = vals[0], vals[1], vals[2]
+            self.last_update_ok = bool(vals[3])
+            self.quarantine_dropped = vals[4]
+            self._guards_engaged = True
         for key in self._defaults:
             full = prefix + key
             if full in state_dict:
@@ -565,14 +879,31 @@ class Metric(torch.nn.Module, ABC):
         self._cache = None
         self._is_synced = False
 
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Cast floating-point states to ``dst_type``; drops the capture cache, whose
+        variants were captured for the old types."""
+
+        def _cast(v: Tensor) -> Tensor:
+            return v.to(dst_type) if v.is_floating_point() else v
+
+        for key, value in self._state_values.items():
+            if isinstance(value, MaskedBuffer):
+                self._state_values[key] = MaskedBuffer(_cast(value.data), value.count)
+            else:
+                self._state_values[key] = _map_state(value, _cast)
+        self._jitted_update = None
+        return self
+
     # ---------------------------------------------------------------- (de)serialization
 
     def __getstate__(self) -> Dict[str, Any]:
-        skip = {"update", "compute", "_update_impl", "_compute_impl", "_update_signature"}
+        # a CUDA graph can be neither pickled nor copied: a copy captures its own
+        skip = {"update", "compute", "_update_impl", "_compute_impl", "_update_signature", "_jitted_update"}
         return {k: v for k, v in self.__dict__.items() if k not in skip}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         super().__setstate__(state)
+        self._jitted_update = None
         self._wrap_methods()
 
     def __deepcopy__(self, memo: dict) -> "Metric":

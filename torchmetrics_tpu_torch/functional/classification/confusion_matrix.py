@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _is_traced,
     _maybe_apply_sigmoid,
     _multilabel_not_ported,
     _unique_values,
@@ -78,6 +79,8 @@ def _binary_confusion_matrix_tensor_validation(
             "The `preds` and `target` should have the same shape,"
             f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
         )
+    if _is_traced(preds, target):
+        return
     unique_values = _unique_values(target)
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     if not unique_values.issubset(allowed):
@@ -188,6 +191,8 @@ def _multiclass_confusion_matrix_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
+    if _is_traced(preds, target):
+        return
     check_value = num_classes if ignore_index is None else num_classes + 1
     num_unique = len(torch.unique(target))
     if num_unique > check_value:

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
+    _is_traced,
     _maybe_apply_sigmoid,
     _multilabel_not_ported,
     _unique_values,
@@ -135,6 +136,8 @@ def _binary_precision_recall_curve_tensor_validation(
         )
     if not preds.is_floating_point():
         raise ValueError("Expected argument `preds` to be a float tensor with probabilities/logits")
+    if _is_traced(preds, target):
+        return
     unique_values = _unique_values(target)
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     if not unique_values.issubset(allowed):
@@ -251,6 +254,8 @@ def _multiclass_precision_recall_curve_tensor_validation(
         raise ValueError(f"Expected `preds.shape[1]` to equal `num_classes` ({num_classes}), got {preds.shape[1]}")
     if preds.shape[0] != target.shape[0] or preds.shape[2:] != target.shape[1:]:
         raise ValueError("Expected shapes (N, C, ...) for `preds` and (N, ...) for `target`")
+    if _is_traced(preds, target):
+        return
     num_unique = len(torch.unique(target))
     check = num_classes if ignore_index is None else num_classes + 1
     if num_unique > check:

@@ -36,6 +36,12 @@ def _unique_values(x: Tensor) -> set:
     return set(torch.unique(x).tolist())
 
 
+def _is_traced(*xs: Tensor) -> bool:
+    """Whether a CUDA graph capture is recording these tensors' work: the value checks
+    (which read values back to the host) are skipped then, as JAX skips them under jit."""
+    return any(x.is_cuda for x in xs) and torch.cuda.is_current_stream_capturing()
+
+
 # --------------------------------------------------------------------------- binary
 
 
@@ -68,6 +74,8 @@ def _binary_stat_scores_tensor_validation(
         )
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
+    if _is_traced(preds, target):
+        return
     unique_values = _unique_values(target)
     allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
     if not unique_values.issubset(allowed):
@@ -217,6 +225,8 @@ def _multiclass_stat_scores_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
+    if _is_traced(preds, target):
+        return
     check_value = num_classes if ignore_index is None else num_classes + 1
     to_check = [(target, "target")]
     if not preds.is_floating_point():

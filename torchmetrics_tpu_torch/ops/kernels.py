@@ -20,6 +20,12 @@ the launches of each kernel, so a run can show that its path went through them.
   ``torch.autograd.Function`` whose forward launches the kernel and whose backward
   applies the adjoint of the separable window in plain PyTorch.
 
+A wrapper's launch can be captured in a CUDA graph (``core/jit.py``): its scratch is
+kept per (device, stream), so a warm call on the capture stream makes it before the
+capture, and a replay of K2's and K3's ticketed launches leaves it zero as an eager
+call does. ``LAUNCHES`` counts where a wrapper launches, so the capture cache adds a
+variant's counts at each replay.
+
 Every kernel and plain version takes an int64 label or index by its low 32 bits, as
 the JAX package (64-bit types off) converts it to int32 on entry. The counting kernels
 count in int32, exactly. ``weighted_bincount`` sums in float64 and rounds to float32
@@ -191,6 +197,13 @@ def _confusion_slots_bytes(index: int, n: int, c: int) -> int:
     return _grid_slots_bytes(index, n, c * c)
 
 
+# The raw handles of the streams that CUDA graphs are captured on (``core/jit.py``'s
+# capture streams). A graph keeps the address of the scratch its capture used, so a
+# scratch of such a stream that grows is retired, never freed.
+GRAPH_STREAMS: set = set()
+_RETIRED_SCRATCH: list = []
+
+
 def _stream_scratch(cache: Dict[Tuple[int, int], Tensor], index: int, stream: int, nbytes: int,
                     zero: bool) -> Tensor:
     """At least ``nbytes`` of device scratch kept in ``cache`` for (device ``index``, raw
@@ -198,6 +211,9 @@ def _stream_scratch(cache: Dict[Tuple[int, int], Tensor], index: int, stream: in
     run in order and may share it, launches on two streams may not."""
     scratch = cache.get((index, stream))
     if scratch is None or scratch.numel() < nbytes:
+        if scratch is not None and stream in GRAPH_STREAMS:
+            # a captured graph may hold the old scratch's address: it must outlive it
+            _RETIRED_SCRATCH.append(scratch)
         # allocated while `stream` is current, so the allocator ties it to that stream
         make = torch.zeros if zero else torch.empty
         scratch = make(max(nbytes, 4096), dtype=torch.uint8, device=torch.device("cuda", index))
