@@ -55,7 +55,25 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    chunk or eager batch in the loop, and a fault run (NaN put into ImageNet batches
    13 and 42 under the ``quarantine`` policy) quarantines exactly those update
    indices, replays their two chunks per batch and equals the eager loop without them.
-8. ``collection_sync``: two ranks in one gloo world on the one card
+8. ``session_eval``: both grouped collections as tenant sessions (``imagenet``,
+   ``ctr``) of ``MetricPipeline(fuse=8)`` with an alert engine (a non-finite and an
+   out-of-bounds rule, evaluated at every commit) and ``CheckpointPolicy(every_batches=16,
+   full_every=4, keep=4)``: µs per step with and without the policy and the engine,
+   in three alternating rounds; then the session migrated — the origin folds 48
+   ImageNet / 6 CTR batches, holds 2 behind its cursor, drains and checkpoints with
+   them as the tail — and restored in a spawned process on cuda:0 that replays the
+   tail, folds the rest and computes; then the origin's epoch fenced, its next bundle
+   refused; then a crashed session beside a torn ``bundle-*.tmp.*`` directory restored
+   from ``latest_valid_bundle`` with its gap re-fed; then a NaN in one batch. It prints
+   bundle bytes (full and delta), seconds to write, verify and restore a bundle, the
+   restored process's capture seconds and K1/K2/K3 launches per step, and the peak
+   device memory of the rounds. It fails unless the migrated and the crash-recovered
+   sessions are bitwise the control, the restored process launched K1/K2/K3 at
+   ``pipeline_eval``'s fuse=8 counts per step (ImageNet 2/1/1, CTR 1/1/1), its registry
+   row, report and value timelines continue the origin's, the fenced bundle raises
+   ``FencedBundleError``, no alert fires on clean data and the NaN fires the non-finite
+   rule with one flight dump.
+9. ``collection_sync``: two ranks in one gloo world on the one card
    (``torch.multiprocessing`` spawn, a timeout on the rendezvous and on each
    collective, one on the whole world). Each rank makes the full seeded data, updates
    a grouped and an ungrouped collection with every other batch on ``cuda:0`` and
@@ -66,17 +84,17 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    (``sync_state`` of the leaders' states). Both ranks' synced values and states must equal the single-process
    collection's over all the data (integers exactly, floats within the
    classification tolerance); a rank that fails or hangs fails the run.
-9. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+10. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
-10. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+11. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-11. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+12. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
@@ -114,6 +132,11 @@ card compares two revisions.
 builds the kernels and prints only the ``pipeline_eval`` phase's line (its checks
 included), so that two revisions of the capture cache and the pipeline are compared
 the same way: earlier, this, this, earlier on one card.
+
+    python3 chip_smoke.py --session-eval
+
+builds the kernels and prints only the ``session_eval`` phase's line (its checks
+included).
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
 its operations over the float32 rate of the data sheet (an FMA counting two).
@@ -1244,6 +1267,437 @@ def pipeline_eval_phase() -> dict:
     return {"phase": "pipeline_eval", "sets": sets, "fault_run": fault, "launches": launches}
 
 
+# -------------------------------------------------------------------- session
+
+# the migrated session: the origin folds the first SESSION_CUT batches, holds the next
+# SESSION_TAIL behind its cursor, and the restored process replays them and folds the
+# rest; the restored process then runs 52 ImageNet / 10 CTR batches, which split into
+# chunks of 8 and one unpadded bucket (4 / 2), so its launches per step are exact
+SESSION_CUT = {"imagenet": 48, "binary": 6}
+SESSION_TAIL = 2
+# the crash run dies after this many fed batches (CTR: the whole stream, since a
+# 16-batch cadence writes its one bundle at the end of the 16-batch stream)
+SESSION_CRASH_AT = {"imagenet": 75, "binary": 16}
+# the batch whose first score is NaN in the alert run
+SESSION_NAN_BATCH = {"imagenet": 30, "binary": 5}
+SESSION_TENANT = {"imagenet": "imagenet", "binary": "ctr"}
+SESSION_ROUNDS = 3
+SESSION_VARIANTS = ("plain", "alerts", "checkpoint")
+# K1/K2/K3 launches per step of pipeline_eval's fuse=8 variant
+SESSION_LAUNCHES_PER_STEP = {"imagenet": {"confusion_matrix": 2, "binned_curve_counts": 1, "weighted_bincount": 1},
+                             "binary": {"confusion_matrix": 1, "binned_curve_counts": 1, "weighted_bincount": 1}}
+SESSION_CHILD_TIMEOUT_S = 300
+
+
+def session_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "session")
+
+
+def session_engine():
+    """An alert engine with its own value log: the non-finite and the out-of-bounds rule
+    over every metric's scalar values."""
+    from torchmetrics_tpu_torch.obs.alerts import AlertEngine, AlertRule
+    from torchmetrics_tpu_torch.obs.values import ValueLog
+
+    return AlertEngine(rules=[AlertRule(name="non_finite", kind="non_finite"),
+                              AlertRule(name="out_of_bounds", kind="bounds")], value_log=ValueLog())
+
+
+def session_config(kind: str, variant: str, directory: str, engine=None):
+    from torchmetrics_tpu_torch.engine import PipelineConfig
+    from torchmetrics_tpu_torch.engine.migrate import CheckpointPolicy
+
+    policy = None
+    if variant == "checkpoint":
+        policy = CheckpointPolicy(directory=directory, every_batches=16, full_every=4, keep=4)
+    return PipelineConfig(fuse=PIPELINE_FUSE, tenant=SESSION_TENANT[kind], alert_every=1,
+                          alert_engine=engine if variant != "plain" else None, checkpoint=policy,
+                          flight_dump_dir=os.path.join(session_root(), "flight"))
+
+
+def session_run(kind: str, metrics_fn, batches: list, variant: str, directory: str) -> dict:
+    """One tenant session over ``batches`` after its warmup: ``plain`` (fuse=8), with the
+    alert engine evaluated at every commit, and with it and the continuous checkpoint
+    policy too (the control). The clock covers the pass, ``compute`` and a synchronise."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline
+
+    col = MetricCollection(metrics_fn("cuda"))
+    engine = session_engine()
+    pipe = MetricPipeline(col, session_config(kind, variant, directory, engine))
+    pipe.warmup(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.run(batches)
+    values = col.compute()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    pipe.close()
+    stats = pipe._checkpointer.stats if pipe._checkpointer is not None else None
+    return {"seconds": seconds, "values": to_cpu(values), "states": to_cpu(collection_states(col)),
+            "firing": engine.firing(), "checkpoint_stats": stats, "flight_dumps": len(pipe.flight_dumps)}
+
+
+def session_restore_set(kind: str, metrics_fn, data_fn, batch: int, bundle: str) -> dict:
+    """The restored half of the migration, in a process of its own: fresh metrics,
+    ``restore_session`` (the tail replays into the open chunk), a warmup that captures
+    the restored pipeline's graphs (the cold start), then the rest of the stream with
+    launch counts zeroed just before and read just after."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine.migrate import CheckpointPolicy, restore_session
+    from torchmetrics_tpu_torch.obs import scope
+    from torchmetrics_tpu_torch.ops import kernels
+
+    batches = batches_of(*data_fn(), batch)
+    col = MetricCollection(metrics_fn("cuda"))
+    engine = session_engine()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe, manifest = restore_session(
+        col, bundle, alert_engine=engine, value_log=engine._log(),
+        flight_dump_dir=os.path.join(session_root(), "flight"),
+        checkpoint=CheckpointPolicy(directory=os.path.join(session_root(), kind, "restored"), every_batches=16,
+                                    full_every=4, keep=4))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    cursor = manifest["cursor"]["batches_ingested"] + manifest["cursor"]["tail_batches"]
+    origin_row = manifest["registry"]
+    restored_row = next(r for r in scope.get_registry().rows() if r["tenant"] == SESSION_TENANT[kind])
+    warm = pipe.warmup(*batches[cursor])
+    before = pipe.report()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pipe.run(batches[cursor:])
+    values = col.compute()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    report = pipe.report()
+    pipe.close()
+    row = next(r for r in scope.get_registry().rows() if r["tenant"] == SESSION_TENANT[kind])
+    series = [s for s in engine._log().series() if s["tenant"] == SESSION_TENANT[kind]]
+    return {
+        "values": to_cpu(values), "states": to_cpu(collection_states(col)), "launches": launches,
+        "steps": len(batches) - manifest["cursor"]["batches_ingested"],
+        "padded_steps": report.padded_steps - before.padded_steps, "report": report.asdict(),
+        "restore_s": restore_s, "capture_s": warm["total_compile_seconds"], "variants": warm["variants"],
+        "origin_row": origin_row, "restored_row": restored_row, "row": row,
+        "leaders": len(col.compute_groups),
+        "series_steps": {f"{s['metric']}[{s['inst']}].{s['leaf']}": [p[0] for p in s["points"]] for s in series},
+        "firing": engine.firing(), "lineage_epoch": pipe.lineage_epoch,
+    }
+
+
+def session_restore_worker(bundles: dict, queue) -> None:
+    """The restoring process (spawned): every set's bundle restored on cuda:0; the
+    result goes back as ``torch.save`` bytes."""
+    import io
+    import traceback
+
+    import torch
+
+    try:
+        torch.cuda.set_device(0)
+        out = {}
+        for kind, metrics_fn, data_fn, batch, _ in COLLECTION_SETS:
+            out[kind] = session_restore_set(kind, metrics_fn, data_fn, batch, bundles[kind])
+            release_graphs()
+        payload = io.BytesIO()
+        torch.save(out, payload)
+        queue.put((payload.getvalue(), None))
+    except BaseException:  # reported to the parent, which fails the run
+        queue.put((None, traceback.format_exc()))
+        raise
+
+
+def session_restore_elsewhere(bundles: dict) -> dict:
+    """Run :func:`session_restore_worker` in a spawned process and wait for it (a
+    timeout on the whole process; a failure or a hang fails the run)."""
+    import io
+    import queue as queue_mod
+
+    import torch
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=session_restore_worker, args=(bundles, results))
+    proc.start()
+    try:
+        deadline = time.monotonic() + SESSION_CHILD_TIMEOUT_S
+        while True:
+            if time.monotonic() > deadline:
+                raise AssertionError("session_eval: the restoring process hung")
+            try:
+                result, error = results.get(timeout=1)
+                break
+            except queue_mod.Empty:
+                if proc.exitcode not in (None, 0):
+                    raise AssertionError(f"session_eval: the restoring process exited with {proc.exitcode}")
+        if error is not None:
+            raise AssertionError(f"session_eval: the restoring process failed:\n{error}")
+        proc.join(timeout=60)
+        if proc.exitcode != 0:
+            raise AssertionError(f"session_eval: the restoring process ended with exit code {proc.exitcode}")
+        return torch.load(io.BytesIO(result))
+    finally:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+
+
+def session_bitwise(where: str, got: dict, want: dict) -> None:
+    """Every state and value of ``got`` bitwise ``want``'s."""
+    for m in want["states"]:
+        if not bitwise_equal(list(got["states"][m].values()), list(want["states"][m].values())):
+            raise AssertionError(f"session_eval {where}: the states of {m} are not bitwise the control's")
+    for m, value in want["values"].items():
+        a = list(value) if isinstance(value, tuple) else value
+        b = list(got["values"][m]) if isinstance(got["values"][m], tuple) else got["values"][m]
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"session_eval {where}: the value of {m} is not bitwise the control's")
+
+
+def session_eval_phase() -> dict:
+    """A tenant session of each eval loop's grouped collection, migrated and crashed.
+
+    1. Control: ``MetricPipeline(fuse=8)`` as tenant ``imagenet`` / ``ctr`` with an
+       alert engine (non-finite and out-of-bounds rules, ``alert_every=1``) and
+       ``CheckpointPolicy(every_batches=16, full_every=4, keep=4)``, in alternating
+       rounds with the same session without the policy and without either.
+    2. Migrated run: the same session anew folds the first half of the stream but for
+       two batches it holds behind its cursor; ``drain`` and ``checkpoint_session``
+       with those two as the tail.
+    3. A spawned process restores each bundle on cuda:0, replays the tail, folds the
+       rest and computes (``session_restore_worker``).
+    4. Fencing: the origin's epoch is fenced; the origin's next bundle must raise
+       ``FencedBundleError`` and the migration bundle must still verify.
+    5. Crash recovery: a session with the policy dies mid-stream beside a torn
+       ``bundle-*.tmp.*`` directory; ``latest_valid_bundle`` must skip it with a
+       warning, and a restore plus a re-feed of the gap must compute the control.
+
+    Fails unless every state and value of 3 and 5 is bitwise the control's, the
+    restored process launched K1/K2/K3 at pipeline_eval's fuse=8 counts per step, its
+    registry row, report and value timelines continue the origin's, no alert fired on
+    clean data, and a NaN in one batch fires the non-finite rule with one flight dump.
+    """
+    import shutil
+
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline
+    from torchmetrics_tpu_torch.engine.migrate import (
+        FencedBundleError,
+        checkpoint_session,
+        fence_epoch,
+        latest_valid_bundle,
+        restore_session,
+        verify_bundle,
+    )
+
+    root = session_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sets, data, controls, bundles, origins = {}, {}, {}, {}, {}
+    try:
+        for kind, metrics_fn, data_fn, batch, _ in COLLECTION_SETS:
+            batches = data[kind] = batches_of(*data_fn(), batch)
+            steps = len(batches)
+            us, runs = {v: [] for v in SESSION_VARIANTS}, {}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            for rnd in range(SESSION_ROUNDS):
+                order = SESSION_VARIANTS if rnd % 2 == 0 else SESSION_VARIANTS[::-1]
+                for variant in order:
+                    directory = os.path.join(root, kind, f"{variant}{rnd}")
+                    run = session_run(kind, metrics_fn, batches, variant, directory)
+                    us[variant].append(run["seconds"] / steps * 1e6)
+                    if run["firing"]:
+                        raise AssertionError(f"session_eval {kind} {variant}: alerts fired on clean data:"
+                                             f" {run['firing']}")
+                    runs.setdefault(variant, run)
+                    session_bitwise(f"{kind} {variant} round {rnd}", run, runs["plain"] if "plain" in runs else run)
+                    release_graphs()
+            peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+            control = controls[kind] = runs["checkpoint"]
+            session_bitwise(f"{kind} control", control, runs["plain"])
+            stats = control["checkpoint_stats"]
+
+            # 2. the migrated run's origin
+            cut = SESSION_CUT[kind]
+            col = MetricCollection(metrics_fn("cuda"))
+            engine = session_engine()
+            origin = MetricPipeline(col, session_config(kind, "checkpoint", os.path.join(root, kind, "origin"), engine))
+            origin.warmup(*batches[0])
+            for b in batches[:cut]:
+                origin.feed(*b)
+            migrate_dir = os.path.join(root, kind, "migrate")
+            bundle = bundles[kind] = os.path.join(migrate_dir, "bundle-000000")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            manifest = checkpoint_session(origin, bundle, tail=batches[cut:cut + SESSION_TAIL])
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            verify_bundle(bundle)
+            verify_s = time.perf_counter() - t0
+            origins[kind] = (origin, col, manifest)
+            sets[kind] = {
+                "samples": int(sum(b[0].shape[0] for b in batches)), "batch": batch, "steps": steps,
+                "tenant": SESSION_TENANT[kind], "fuse": PIPELINE_FUSE,
+                "us_per_step": us, "us_per_step_mean": {v: statistics.mean(x) for v, x in us.items()},
+                "us_per_step_median": {v: statistics.median(x) for v, x in us.items()},
+                "control_bundles": {k: dict(v) for k, v in stats.items()},
+                "bundle_bytes": {k: (v["bytes"] / v["count"] if v["count"] else None) for k, v in stats.items()},
+                "migration_bundle_bytes": sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle)),
+                "bundle_write_s": write_s, "bundle_verify_s": verify_s,
+                "origin_cursor": manifest["cursor"]["batches_ingested"], "tail": manifest["cursor"]["tail_batches"],
+                "peak_mb_rounds": peak_mb,
+            }
+            del col
+            release_graphs()
+
+        # 3. the restoring process
+        t0 = time.perf_counter()
+        restored = session_restore_elsewhere(bundles)
+        child_wall = time.perf_counter() - t0
+        launches = {}
+        for kind, _, _, _, _ in COLLECTION_SETS:
+            got, record = restored[kind], sets[kind]
+            session_bitwise(f"{kind} migrated", got, controls[kind])
+            want = {k: n * got["steps"] for k, n in SESSION_LAUNCHES_PER_STEP[kind].items()}
+            counted = {k: got["launches"][k] for k in want}
+            if got["padded_steps"] or counted != want:
+                raise AssertionError(f"session_eval {kind}: the restored process launched {counted} over"
+                                     f" {got['steps']} steps ({got['padded_steps']} padded), not {want}")
+            for name, n in got["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            origin_row, row = got["origin_row"], got["row"]
+            if got["restored_row"]["updates"] != origin_row["updates"] or \
+                    row["updates"] != origin_row["updates"] + got["leaders"] * got["steps"] or \
+                    row["first_seen_unix"] != origin_row["first_seen_unix"]:
+                raise AssertionError(f"session_eval {kind}: the registry row restarted: origin {origin_row},"
+                                     f" restored {got['restored_row']}, final {row}")
+            if got["report"]["batches"] != record["steps"] or got["report"]["processed_batches"] != record["steps"]:
+                raise AssertionError(f"session_eval {kind}: the restored report counts {got['report']['batches']}"
+                                     f" batches, not the stream's {record['steps']}")
+            # a value series is keyed by metric instance: the origin's series come back
+            # with their step anchors, and the restored metrics' own series go on from
+            # the origin's update counts, not from 0
+            cursor = record["origin_cursor"]
+            carried = {k: s for k, s in got["series_steps"].items() if s and s[0] <= cursor}
+            fresh = {k: s for k, s in got["series_steps"].items() if k not in carried}
+            if not carried or not fresh or any(s != sorted(s) for s in got["series_steps"].values()) or \
+                    any(s[-1] > cursor for s in carried.values()) or \
+                    any(s[0] <= cursor or s[-1] != record["steps"] for s in fresh.values()):
+                raise AssertionError(f"session_eval {kind}: the value timelines did not continue across the"
+                                     f" move: {got['series_steps']}")
+            if got["firing"]:
+                raise AssertionError(f"session_eval {kind}: alerts fired in the restored process: {got['firing']}")
+            record.update({"restore_s": got["restore_s"], "restored_capture_s": got["capture_s"],
+                           "restored_captured_variants": got["variants"], "restored_steps": got["steps"],
+                           "restored_launches_per_step": {k: got["launches"][k] / got["steps"] for k in want},
+                           "registry_updates": {"origin": origin_row["updates"], "final": row["updates"]},
+                           "value_series": {"carried": len(carried), "fresh": len(fresh)}})
+
+            # 4. fencing: the origin writes again after its epoch is fenced
+            origin, _, manifest = origins.pop(kind)
+            migrate_dir = os.path.dirname(bundles[kind])
+            fence_epoch(migrate_dir, origin.lineage_epoch, tenant=SESSION_TENANT[kind], by="session_eval")
+            zombie = os.path.join(migrate_dir, "bundle-000001")
+            checkpoint_session(origin, zombie)
+            try:
+                verify_bundle(zombie)
+            except FencedBundleError:
+                pass
+            else:
+                raise AssertionError(f"session_eval {kind}: the fenced origin's bundle verified")
+            verify_bundle(bundles[kind])
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                chosen = latest_valid_bundle(migrate_dir)
+            if chosen != bundles[kind] or not any("zombie" in str(w.message) for w in caught):
+                raise AssertionError(f"session_eval {kind}: recovery chose {chosen} beside the fenced bundle")
+            origin.close()
+            record["fenced"] = {"epoch": origin.lineage_epoch, "zombie_rejected": True}
+            release_graphs()
+
+        # 5. crash recovery, and the NaN run
+        for kind, metrics_fn, _, _, _ in COLLECTION_SETS:
+            batches, record = data[kind], sets[kind]
+            crash_dir = os.path.join(root, kind, "crash")
+            col = MetricCollection(metrics_fn("cuda"))
+            crashed = MetricPipeline(col, session_config(kind, "checkpoint", crash_dir, session_engine()))
+            for b in batches[:SESSION_CRASH_AT[kind]]:
+                crashed.feed(*b)
+            torch.cuda.synchronize()
+            del crashed, col  # the process "dies": no drain, no close, no final bundle
+            release_graphs()
+            torn = os.path.join(crash_dir, "bundle-000099.tmp.4242.deadbeef")
+            os.makedirs(torn)
+            with open(os.path.join(torn, "state.npz"), "wb") as fh:
+                fh.write(b"PK\x03\x04 torn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                latest = latest_valid_bundle(crash_dir)
+            if latest is None or not any(os.path.basename(torn) in str(w.message) for w in caught):
+                raise AssertionError(f"session_eval {kind}: the crash scan chose {latest} and did not name the"
+                                     " torn directory")
+            col = MetricCollection(metrics_fn("cuda"))
+            pipe, manifest = restore_session(col, latest, alert_engine=session_engine(),
+                                             flight_dump_dir=os.path.join(root, "flight"))
+            gap_from = manifest["cursor"]["batches_ingested"]
+            pipe.run(batches[gap_from:])
+            recovered = {"values": to_cpu(col.compute()), "states": to_cpu(collection_states(col))}
+            pipe.close()
+            session_bitwise(f"{kind} crash-recovered", recovered, controls[kind])
+            record["crash"] = {"died_after": SESSION_CRASH_AT[kind], "restored_from": os.path.basename(latest),
+                               "gap_refed": len(batches) - gap_from}
+            del col, pipe
+            release_graphs()
+
+            poisoned = list(batches)
+            p, t = poisoned[SESSION_NAN_BATCH[kind]]
+            p = p.clone()
+            p.view(-1)[0] = float("nan")
+            poisoned[SESSION_NAN_BATCH[kind]] = (p, t)
+            run = session_run_with_nan(kind, metrics_fn, poisoned)
+            record["nan_run"] = run
+            release_graphs()
+    finally:
+        for origin, _, _ in origins.values():
+            origin.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "session_eval", "sets": sets, "restoring_process_wall_s": child_wall, "launches": launches}
+
+
+def session_run_with_nan(kind: str, metrics_fn, batches: list) -> dict:
+    """The session with the alert engine over a stream with one NaN score: the
+    non-finite rule must fire and the pipeline must write exactly one flight dump."""
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline
+
+    col = MetricCollection(metrics_fn("cuda"))
+    engine = session_engine()
+    pipe = MetricPipeline(col, session_config(kind, "alerts", "", engine))
+    pipe.run(batches)
+    pipe.close()
+    fired = sorted({a["rule"] for a in engine.firing()})
+    dumps = pipe.flight_dumps
+    if "non_finite" not in fired or len(dumps) != 1:
+        raise AssertionError(f"session_eval {kind}: a NaN batch fired {fired} and wrote {len(dumps)} flight dumps")
+    with open(dumps[0], encoding="utf-8") as fh:
+        reason = json.loads(fh.readline())["reason"]
+    if not reason.startswith("value_alert:") or "non_finite" not in reason:
+        raise AssertionError(f"session_eval {kind}: the flight dump's reason is {reason!r}")
+    return {"nan_batch": SESSION_NAN_BATCH[kind], "fired": fired, "flight_dumps": len(dumps), "reason": reason,
+            "series_firing": sorted({a["series"] for a in engine.firing()})}
+
+
 def free_port() -> int:
     import socket
 
@@ -1808,6 +2262,11 @@ def main() -> int:
         emit({**pipeline_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
               "phase_wall_s": time.perf_counter() - t0})
         return 0
+    if "--session-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**session_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
     t0 = time.perf_counter()
     records = [kernel_record_confusion_matrix(1 << 20, c, seed=c, main_path=False) for c in (10, 100, 1000)]
     # the ImageNet step's stat scores: argmax's int64 preds beside int32 targets
@@ -1864,6 +2323,10 @@ def main() -> int:
     pipeline = pipeline_eval_phase()
     phases.append(pipeline)
     emit({**pipeline, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    session = session_eval_phase()
+    phases.append(session)
+    emit({**session, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     sync = collection_sync_phase(reference)
     phases.append(sync)

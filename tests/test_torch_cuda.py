@@ -1351,3 +1351,119 @@ def test_a_jit_update_metric_replays_its_capture_and_equals_eager(card):
     info = jitted._jitted_update.cache_info()
     assert (info["misses"], info["hits"], info["replays"]) == (1, 2, 3)
     assert torch.equal(jitted.confmat, eager.confmat)
+
+
+# ------------------------------------------------------------------ sessions
+
+
+def _session_states(col) -> dict:
+    return {name: col[name].state_dict(persistent_only=False) for name in col.keys(keep_base=True)}
+
+
+def _assert_states_bitwise(got: dict, want: dict, where: str) -> None:
+    for name, states in want.items():
+        for key, value in states.items():
+            _assert_bitwise(got[name][key], value, f"{where}.{name}.{key}")
+
+
+@pytest.mark.parametrize("kind", ["imagenet", "binary"])
+def test_a_drain_right_after_a_fused_flush_equals_the_eager_loop(card, kind, tmp_path):
+    """The eighth batch dispatches a full chunk (a replay on the capture stream); a drain
+    right after it must wait on every ticket before the bundle copies the state back, so
+    the bundle and the live state are the eager loop's, bit for bit."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.engine.migrate import checkpoint_session
+    from torchmetrics_tpu_torch.utils.checkpoint import _decode_tree, _host_states
+
+    make = _imagenet_set if kind == "imagenet" else _binary_set
+    batches = [(p.to(card), t.to(card)) for p, t in _pipeline_batches(kind, 8)]
+    eager, driven = MetricCollection(make(card)), MetricCollection(make(card))
+    for p, t in batches:
+        eager.update(p, t)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=8))
+    for p, t in batches:
+        pipe.feed(p, t)  # the last feed flushes the chunk into a replay
+    assert pipe.drain() == []
+    manifest = checkpoint_session(pipe, str(tmp_path / "bundle"))
+    assert manifest["cursor"]["batches_ingested"] == 8 and pipe.report().dispatches == 1
+    _assert_states_bitwise(_session_states(driven), _session_states(eager), "live")
+    with np.load(tmp_path / "bundle" / "state.npz") as payload:
+        arrays = {key: payload[key] for key in payload.files}
+    tree = _decode_tree(manifest["state_skeleton"], arrays)
+    for name in eager.keys(keep_base=True):
+        want = _host_states(eager[name])["states"]
+        for key, value in want.items():
+            got = tree[name]["states"][key]
+            assert got.dtype == value.dtype and got.shape == value.shape, f"{name}.{key}"
+            assert np.array_equal(np.atleast_1d(got).view(np.uint8), np.atleast_1d(value).view(np.uint8)), f"{name}.{key}"
+
+
+@pytest.mark.parametrize("kind", ["imagenet", "binary"])
+def test_a_restored_session_replays_k1_k2_k3_and_equals_its_plain_versions(card, kind, tmp_path):
+    """A session checkpointed after 4 batches with 2 behind its cursor, restored onto
+    fresh metrics on the card: its replays launch K1, K2 and K3 (counted through the
+    replays), and its states and values equal the same stream on the CPU, where every
+    kernel runs its plain version (integers exactly, floats within 1e-5)."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.engine.migrate import checkpoint_session, restore_session
+
+    make = _imagenet_set if kind == "imagenet" else _binary_set
+    cpu_batches = _pipeline_batches(kind, 12)
+    batches = [(p.to(card), t.to(card)) for p, t in cpu_batches]
+    origin = MetricPipeline(MetricCollection(make(card)), PipelineConfig(fuse=4, tenant=f"card-{kind}"))
+    for p, t in batches[:4]:
+        origin.feed(p, t)
+    checkpoint_session(origin, str(tmp_path / "bundle"), tail=batches[4:6])
+    origin.close()
+    restored = MetricCollection(make(card))
+    pipe, _ = restore_session(restored, str(tmp_path / "bundle"))  # the tail waits in the open chunk
+    pipe.warmup(*batches[6])  # a new capture around the restored state
+    kernels.reset_launch_counts()
+    pipe.run(batches[6:])
+    launches = dict(kernels.LAUNCHES)
+    per_step = {"imagenet": (2, 1, 1), "binary": (1, 1, 1)}[kind]
+    assert [launches[k] for k in ("confusion_matrix", "binned_curve_counts", "weighted_bincount")] == \
+        [8 * n for n in per_step]  # 8 steps: a chunk of 4 (2 tail + 2) and one of 4
+    assert sum(info["replays"] for info in pipe.cache_info()) == 2
+    plain = MetricCollection(make("cpu"))
+    for p, t in cpu_batches:
+        plain.update(p, t)
+    got, want = _session_states(restored), _session_states(plain)
+    for name, states in want.items():
+        for key, value in states.items():
+            mine = got[name][key].cpu()
+            if value.is_floating_point():
+                assert torch.allclose(mine, value, atol=1e-5, rtol=1e-6 if key == "bins" else 0.0), f"{name}.{key}"
+            else:
+                assert torch.equal(mine, value), f"{name}.{key}"
+    values, plain_values = restored.compute(), plain.compute()
+    for name, value in plain_values.items():
+        for a, b in zip(value if isinstance(value, tuple) else (value,),
+                        values[name] if isinstance(values[name], tuple) else (values[name],)):
+            assert torch.allclose(b.cpu().double(), a.double(), atol=1e-5, rtol=0, equal_nan=True), name
+
+
+def test_a_periodic_bundle_written_between_replays_is_chunk_consistent(card, tmp_path):
+    """Bundles every 4 batches at commit boundaries, chunks of 4, replays in flight: each
+    bundle holds exactly the fold of the batches its cursor names, bit for bit."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.engine.migrate import CheckpointPolicy, restore_session
+
+    batches = [(p.to(card), t.to(card)) for p, t in _pipeline_batches("imagenet", 10)]
+    policy = CheckpointPolicy(directory=str(tmp_path / "stream"), every_batches=4, full_every=2, keep=8)
+    pipe = MetricPipeline(MetricCollection(_imagenet_set(card)), PipelineConfig(fuse=4, checkpoint=policy))
+    for p, t in batches:
+        pipe.feed(p, t)  # commits at 4 and 8 write bundle-000000 and the delta bundle-000001
+    names = sorted(os.listdir(tmp_path / "stream"))
+    assert names == ["bundle-000000", "bundle-000001"]
+    for name, cursor in zip(names, (4, 8)):
+        restored = MetricCollection(_imagenet_set(card))
+        _, manifest = restore_session(restored, str(tmp_path / "stream" / name), replay=False)
+        assert manifest["cursor"]["batches_ingested"] == cursor
+        eager = MetricCollection(_imagenet_set(card))
+        for p, t in batches[:cursor]:
+            eager.update(p, t)
+        _assert_states_bitwise(_session_states(restored), _session_states(eager), name)
+    pipe.close()

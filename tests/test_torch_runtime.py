@@ -291,3 +291,151 @@ def test_sync_raises_under_torch_distributed(monkeypatch):
     finally:
         torch.distributed.destroy_process_group()
     assert m.compute() is not None
+
+
+# ------------------- compute_on_cpu, the list-state growth guard, the Metric surface
+
+
+def _binary_batches(seed: int, n_batches: int = 5, n: int = 16):
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(n).astype(np.float32), rng.randint(0, 2, n).astype(np.int32)) for _ in range(n_batches)]
+
+
+class _JitList(Metric):
+    """``jit_update=True`` forced on a ragged list state (the JAX suite's ``_JitListMetric``)."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**{"device": "cpu", "jit_update": True, "compute_on_cpu": True, **kwargs})
+        self.add_state("items", [], dist_reduce_fx="cat")
+
+    def update(self, x):
+        self.items.append(x * 2)
+
+    def compute(self):
+        return torch.cat(self.items).sum()
+
+
+@pytest.mark.parametrize("path", ["eager", "pipeline"])
+def test_compute_on_cpu_lands_list_states_on_the_host_as_jax_does(path):
+    """JAX's ``TestComputeOnCpuListStates``: list states move to the host after each
+    update (the engine drives a list-state metric per batch) and compute as without."""
+    from torchmetrics_tpu.engine import MetricPipeline as JPipe
+    from torchmetrics_tpu.engine import PipelineConfig as JConf
+    from torchmetrics_tpu_torch.engine import MetricPipeline as TPipe
+    from torchmetrics_tpu_torch.engine import PipelineConfig as TConf
+
+    batches = _binary_batches(31)
+    jm = jc.BinaryPrecisionRecallCurve(thresholds=None, compute_on_cpu=True)
+    tm = tc.BinaryPrecisionRecallCurve(thresholds=None, compute_on_cpu=True, device="cpu")
+    if path == "eager":
+        for p, t in batches:
+            jm.update(jnp.asarray(p), jnp.asarray(t))
+            tm.update(p, t)
+    else:
+        JPipe(jm, JConf(fuse=4)).run([(jnp.asarray(p), jnp.asarray(t)) for p, t in batches])
+        TPipe(tm, TConf(fuse=4)).run([(torch.as_tensor(p), torch.as_tensor(t)) for p, t in batches])
+    for key in ("preds", "target"):
+        jlist, tlist = jm._state_values[key], tm._state_values[key]
+        assert len(jlist) == len(tlist) == 5
+        assert all(isinstance(v, np.ndarray) for v in jlist)
+        assert all(v.device.type == "cpu" for v in tlist)
+    for a, b in zip(jm.compute(), tm.compute()):
+        _close(a, b)
+    with pytest.raises(ValueError, match="compute_on_cpu"):
+        tc.BinaryAccuracy(compute_on_cpu="yes", device="cpu")
+
+
+def test_compute_on_cpu_after_a_captured_list_update_as_jax_does():
+    """The forced-jit branch: the move runs after the captured update returns."""
+    import torchmetrics_tpu.core.metric as jmetric
+
+    class JaxJitList(jmetric.Metric):
+        def __init__(self):
+            super().__init__(jit_update=True, compute_on_cpu=True)
+            self.add_state("items", [], dist_reduce_fx="cat")
+
+        def update(self, x):
+            self.items.append(x * 2)
+
+        def compute(self):
+            return jnp.concatenate([jnp.asarray(v) for v in self.items]).sum()
+
+    jm, tm = JaxJitList(), _JitList()
+    for _ in range(2):
+        jm.update(jnp.ones(4))
+        tm.update(torch.ones(4))
+    assert len(jm.items) == len(tm.items) == 2
+    assert all(isinstance(v, np.ndarray) for v in jm.items) and all(v.device.type == "cpu" for v in tm.items)
+    _close(jm.compute(), tm.compute())
+
+
+@pytest.mark.parametrize("path", ["eager", "pipeline"])
+def test_list_state_growth_warns_once_and_gauges_as_jax_does(path):
+    """JAX ``tests/core/test_obs_memory.py``: past the threshold both packages warn
+    exactly once, and with tracing on both set the same ``state.list_items`` gauge."""
+    import torchmetrics_tpu.obs.trace as jtrace
+    import torchmetrics_tpu_torch.obs.trace as ttrace
+    from torchmetrics_tpu.engine import MetricPipeline as JPipe
+    from torchmetrics_tpu.engine import PipelineConfig as JConf
+    from torchmetrics_tpu_torch.engine import MetricPipeline as TPipe
+    from torchmetrics_tpu_torch.engine import PipelineConfig as TConf
+
+    batches = _binary_batches(7)
+    seen = {}
+    for name, pkg, arr, pipe, conf, trace_mod, kw in (
+        ("jax", jc, jnp.asarray, JPipe, JConf, jtrace, {}),
+        ("torch", tc, torch.as_tensor, TPipe, TConf, ttrace, {"device": "cpu"}),
+    ):
+        m = pkg.BinaryPrecisionRecallCurve(thresholds=None, **kw)
+        m.list_state_warn_threshold = 5
+        with trace_mod.observe() as rec, warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if path == "eager":
+                for p, t in batches:
+                    m.update(arr(p), arr(t))
+            else:
+                pipe(m, conf(fuse=4)).run([(arr(p), arr(t)) for p, t in batches])
+        growth = [w for w in caught if "ragged list-state items" in str(w.message)]
+        gauges = {g["name"]: g for g in rec.snapshot()["gauges"]}
+        events = [e for e in rec.events() if e["name"] == "state.list_growth"]
+        seen[name] = (len(growth), gauges["state.list_items"]["value"],
+                      sorted(gauges["state.list_items"]["labels"]), len(events), str(growth[0].message))
+    # three list states (preds, target and the mask) of 5 items each
+    assert seen["jax"][:4] == seen["torch"][:4] == (1, 15, ["inst", "metric"], 1)
+    # the one warning came at the second update: 6 items past the threshold of 5
+    for name in ("jax", "torch"):
+        assert "holds 6 ragged list-state items (threshold 5): preds: 2 items, target: 2 items, valid: 2 items" \
+            in seen[name][4], name
+
+
+def test_metric_surface_matches_jax():
+    """``metric_state``, ``dtype`` (recorded by ``set_dtype``), ``state_reductions()``,
+    ``to_device``, the top-level ``MaskedBuffer`` and the declared value bounds."""
+    import torchmetrics_tpu as jtm
+    import torchmetrics_tpu_torch as ttm
+
+    jm, tm = jc.MulticlassAccuracy(C, average="macro"), tc.MulticlassAccuracy(C, average="macro", device="cpu")
+    for p, t in _batches(3):
+        jm.update(jnp.asarray(p), jnp.asarray(t))
+        tm.update(p, t)
+    assert sorted(jm.metric_state) == sorted(tm.metric_state)
+    for key in jm.metric_state:
+        _close(jm.metric_state[key], tm.metric_state[key])
+    assert {k: str(v) for k, v in jm.state_reductions().items()} == {k: str(v) for k, v in tm.state_reductions().items()}
+    assert tm.dtype == torch.float32 and jm.dtype == jnp.float32
+    jcal, tcal = jc.BinaryCalibrationError(), tc.BinaryCalibrationError(device="cpu")
+    jcal.set_dtype(jnp.float16)
+    tcal.set_dtype(torch.float16)
+    assert tcal.dtype == torch.float16 and jcal.dtype == jnp.float16
+    assert tm.to_device("cpu") is tm and tm.device.type == "cpu"
+    assert ttm.MaskedBuffer.__name__ == jtm.MaskedBuffer.__name__ == "MaskedBuffer"
+    for name in ("MulticlassAccuracy", "MulticlassMatthewsCorrCoef", "BinaryCalibrationError", "MulticlassAUROC",
+                 "MulticlassConfusionMatrix", "BinaryAveragePrecision", "MulticlassCohenKappa"):
+        jcls, tcls = getattr(jc, name), getattr(tc, name)
+        args = () if name.startswith("Binary") else (C,)
+        assert jcls(*args)._resolved_value_bounds() == tcls(*args, device="cpu")._resolved_value_bounds(), name
+
+    class Bounded(_SumOfSquares):
+        value_bounds = (0, None)
+
+    assert Bounded(device="cpu")._resolved_value_bounds() == (0.0, None)

@@ -21,6 +21,7 @@ from torchmetrics_tpu_torch import functional, obs, robust
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.collections import MetricCollection
+from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.core.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
@@ -28,6 +29,6 @@ from torchmetrics_tpu_torch.image import __all__ as _image_all
 __version__ = "0.1.0.dev0"
 
 __all__ = [
-    "CompositionalMetric", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
+    "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
     *_image_all,
 ]

@@ -33,6 +33,8 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,
@@ -59,6 +61,8 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

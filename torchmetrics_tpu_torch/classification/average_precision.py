@@ -32,6 +32,8 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def compute(self) -> Tensor:
         """AP from the accumulated state."""
@@ -44,6 +46,8 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

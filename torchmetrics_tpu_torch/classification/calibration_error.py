@@ -38,6 +38,8 @@ class BinaryCalibrationError(Metric):
     is_differentiable = False
     higher_is_better = False
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,
@@ -77,6 +79,8 @@ class MulticlassCalibrationError(Metric):
     is_differentiable = False
     higher_is_better = False
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

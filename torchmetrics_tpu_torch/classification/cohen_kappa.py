@@ -27,6 +27,8 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,
@@ -53,6 +55,8 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

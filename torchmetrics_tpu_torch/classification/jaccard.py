@@ -28,6 +28,8 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,
@@ -51,6 +53,8 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

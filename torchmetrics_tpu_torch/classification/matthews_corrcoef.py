@@ -25,6 +25,8 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = -1.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,
@@ -46,6 +48,8 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = -1.0
+    plot_upper_bound: float = 1.0
 
     def __init__(
         self,

@@ -25,6 +25,8 @@ class _BinaryPrecisionRecall(BinaryStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(self, *args: Any, zero_division: float = 0.0, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)
@@ -45,6 +47,8 @@ class _MulticlassPrecisionRecall(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
 
     def __init__(self, *args: Any, zero_division: float = 0.0, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)

@@ -21,8 +21,9 @@ leader per group.
 
 The streaming engine (``engine/pipeline.py``) folds a fused chunk through each group's
 leader once and commits the result to the whole group (``_engine_fusable_leaders``,
-``_engine_commit``). ``memory_footprint``, ``plot`` and the tenant scope come with
-the observability and plotting slices.
+``_engine_commit``). A collection built under a tenant scope (``obs/scope.py``) is
+that tenant's: members without a tenant of their own take it. ``memory_footprint``
+and ``plot`` come with the observability and plotting slices.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from typing import Any, Dict, Hashable, Iterable, Iterator, List, Optional, Sequ
 
 import torch
 
+import torchmetrics_tpu_torch.obs.scope as _scope
 from torchmetrics_tpu_torch.core.metric import Metric, _squeeze_if_scalar
 from torchmetrics_tpu_torch.utils.data import _flatten_dict
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -80,6 +82,10 @@ class MetricCollection(torch.nn.ModuleDict):
         self.postfix = self._check_arg(postfix, "postfix")
         self._enable_compute_groups = compute_groups
         self._groups: Dict[int, List[str]] = {}
+        # tenant attribution (obs/scope.py): a collection constructed under a tenant
+        # scope is that tenant's session; members registered without their own
+        # tenant inherit it (see add_metrics)
+        self._obs_tenant = _scope.current_tenant() if _scope.ENABLED else None
         self.add_metrics(metrics, *additional_metrics)
 
     # ------------------------------------------------------------------- construction
@@ -151,6 +157,13 @@ class MetricCollection(torch.nn.ModuleDict):
                 "Unknown input to MetricCollection. Expected `Metric`, `MetricCollection` or"
                 f" `dict`/`sequence` of the previous, but got {metrics}"
             )
+
+        if getattr(self, "_obs_tenant", None) is not None:
+            # members constructed outside the scope inherit the collection's tenant
+            for member in self._modules.values():
+                if getattr(member, "_obs_tenant", None) is None:
+                    member._obs_tenant = self._obs_tenant
+
         self._init_compute_groups()
 
     def _init_compute_groups(self) -> None:

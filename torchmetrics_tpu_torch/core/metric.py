@@ -37,23 +37,35 @@ PyTorch idiom inside:
 - The ``metric.update``/``metric.forward``/``metric.compute`` spans and the
   ``metric.reset``/``metric.compute_cached`` counters (``obs/trace.py``) cost one
   branch while tracing is off.
+- Tenant attribution (``obs/scope.py``): the ambient tenant at construction sticks to
+  the metric (``_obs_tenant``); each landed update and each fresh ``compute`` counts
+  against the ambient tenant, else that one, in the tenant registry. A fresh
+  ``compute`` also lands in the value timelines (``obs/values.py``) while they are
+  on. Both cost one branch while unused.
+- ``compute_on_cpu=True`` moves list states to the CPU after each update (after a
+  captured replay returns, never inside the capture). List states past
+  ``list_state_warn_threshold`` items warn once; with tracing on, the
+  ``state.list_items`` gauge follows their growth.
 
 Degrading a failed sync to local state (``sync_degraded`` stays ``False``) comes with
-the robust plane; the tenant scope and the value timelines with the obs plane.
+the robust plane.
 """
 
 from __future__ import annotations
 
 import inspect
+import itertools
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.scope as _scope
 import torchmetrics_tpu_torch.obs.trace as _trace
+import torchmetrics_tpu_torch.obs.values as _values
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.core.jit import jit_with_static_leaves
 from torchmetrics_tpu_torch.parallel.reductions import Reduction, merge_states
@@ -112,6 +124,7 @@ class Metric(torch.nn.Module, ABC):
             process group is initialised).
         sync_on_compute: whether ``compute`` syncs across processes (default True).
         compute_with_cache: cache the computed value until the next update or reset.
+        compute_on_cpu: move list states to the CPU after each update.
         jit_update: ``True`` routes ``update`` through the capture cache (a CUDA graph
             replay on the card); ``False`` keeps the metric out of the streaming
             engine's fused chunks. Default ``None``: ``update`` runs eagerly and the
@@ -126,9 +139,21 @@ class Metric(torch.nn.Module, ABC):
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
 
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+
+    # declared range of the computed value, e.g. ``(0.0, 1.0)`` for accuracy — read
+    # by the out-of-bounds value watchdog (obs/alerts.py). ``None`` defers to the plot
+    # bounds; either endpoint may be None for a half-open range.
+    value_bounds: Optional[Sequence[Optional[float]]] = None
+
+    _obs_instance_seq = itertools.count()
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self._device = _resolve_device(kwargs.pop("device", "cuda"))
+        self._dtype = torch.float32
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         self.process_group = kwargs.pop("process_group", None)
         self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
@@ -140,6 +165,8 @@ class Metric(torch.nn.Module, ABC):
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
             raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
+        if not isinstance(self.compute_on_cpu, bool):
+            raise ValueError("Expected keyword argument `compute_on_cpu` to be a `bool`")
         if not isinstance(self.dist_sync_on_step, bool):
             raise ValueError("Expected keyword argument `dist_sync_on_step` to be a `bool`")
         if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
@@ -176,6 +203,12 @@ class Metric(torch.nn.Module, ABC):
         self._guards_engaged = False
         # the capture cache of pure_update (jit_update=True), made at first use
         self._jitted_update = None
+        # one-shot flag for the ragged list-state growth warning
+        self._warned_list_growth = False
+        self._obs_instance = str(next(Metric._obs_instance_seq))
+        # tenant attribution (obs/scope.py): the ambient tenant at construction sticks
+        # to the instance; an ambient scope at call time wins over it
+        self._obs_tenant = _scope.current_tenant() if _scope.ENABLED else None
 
         self._wrap_methods()
 
@@ -286,6 +319,32 @@ class Metric(torch.nn.Module, ABC):
         return (fn.__module__, fn.__qualname__, spec, params)
 
     @property
+    def metric_state(self) -> Dict[str, Any]:
+        """Current values of all registered states."""
+        return dict(self._state_values)
+
+    def _obs_labels(self) -> Dict[str, str]:
+        """Tenant label for span/counter call sites (``obs/scope.py``): the ambient
+        tenant, else the one captured at construction; ``{}`` while tenancy is idle."""
+        if not _scope.ENABLED:
+            return {}
+        tenant = _scope.current_tenant() or self._obs_tenant
+        return {"tenant": tenant} if tenant else {}
+
+    def _resolved_value_bounds(self) -> Optional[tuple]:
+        """Declared ``(lo, hi)`` range of the computed value, or ``None``: the explicit
+        :attr:`value_bounds`, else the plot bounds. Read by the value timeline
+        (``obs/values.py``) and the out-of-bounds watchdog (``obs/alerts.py``)."""
+        bounds = self.value_bounds
+        if bounds is None:
+            lo, hi = self.plot_lower_bound, self.plot_upper_bound
+            if lo is None and hi is None:
+                return None
+            return (lo, hi)
+        lo, hi = bounds[0], bounds[1]
+        return (None if lo is None else float(lo), None if hi is None else float(hi))
+
+    @property
     def update_called(self) -> bool:
         return self._update_count > 0
 
@@ -296,6 +355,11 @@ class Metric(torch.nn.Module, ABC):
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The floating-point dtype of the states, as :meth:`set_dtype` last set it."""
+        return self._dtype
 
     def _apply(self, fn: Callable, recurse: bool = True) -> "Metric":
         """Apply ``fn`` (``.to``, ``.cuda``, ``.cpu``, ...) to the states as well."""
@@ -324,6 +388,9 @@ class Metric(torch.nn.Module, ABC):
     def init_state(self) -> Dict[str, Any]:
         """Fresh default state dict — entry point for the functional API."""
         return self._fresh_state()
+
+    def state_reductions(self) -> Dict[str, Reduction]:
+        return dict(self._reductions)
 
     def _bind_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         prev = self.__dict__["_state_values"]
@@ -395,6 +462,8 @@ class Metric(torch.nn.Module, ABC):
                 raise
             self.updates_ok += 1
             self.last_update_ok = True
+            if _scope.ENABLED:
+                _scope.note_update(self._obs_tenant)
             return
         self._guards_engaged = True
         self._update_count += 1
@@ -406,6 +475,8 @@ class Metric(torch.nn.Module, ABC):
         if ok:
             self.updates_ok += 1
             self.last_update_ok = True
+            if _scope.ENABLED:
+                _scope.note_update(self._obs_tenant)
             return
         self._update_count -= 1  # a skipped batch never counts as an update
         self._record_update_failure(policy, err, args, kwargs)
@@ -461,7 +532,7 @@ class Metric(torch.nn.Module, ABC):
             self.updates_skipped += 1
             verb = "skipped"
         if _trace.ENABLED:
-            _trace.inc(f"robust.update_{verb}", metric=type(self).__name__)
+            _trace.inc(f"robust.update_{verb}", metric=type(self).__name__, **self._obs_labels())
         rank_zero_warn(
             f"{type(self).__name__}.update failed and the batch was {verb}"
             f" (policy={policy.value}): {err}. Accumulated state is unchanged;"
@@ -483,7 +554,7 @@ class Metric(torch.nn.Module, ABC):
         ``jit_update=True``). With tracing on, a ``metric.update`` span records the path."""
         if _trace.ENABLED:
             path = "jit" if self._jit_enabled() else "eager"
-            with _trace.span("metric.update", metric=type(self).__name__, path=path):
+            with _trace.span("metric.update", metric=type(self).__name__, path=path, **self._obs_labels()):
                 self._dispatch_update_inner(*args, **kwargs)
             return
         self._dispatch_update_inner(*args, **kwargs)
@@ -495,8 +566,63 @@ class Metric(torch.nn.Module, ABC):
                 self._jitted_update = jit_with_static_leaves(self.pure_update)
             new = self._jitted_update(self._traced_state(), *args, **kwargs)
             self._state_values = self._host_buffers(new)
+            if self._has_list_defaults():
+                # jit_update forced on a list-state metric: the replay has returned,
+                # so the move to the CPU and the growth guard run outside the capture
+                if self.compute_on_cpu:
+                    self._move_list_states_to_cpu()
+                self._check_list_state_growth()
             return
         self._update_impl(*args, **kwargs)
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+        self._check_list_state_growth()
+
+    def _has_list_defaults(self) -> bool:
+        return any(isinstance(v, list) for v in self._defaults.values())
+
+    def _move_list_states_to_cpu(self) -> None:
+        """``compute_on_cpu``: list states' items as CPU tensors."""
+        for key, value in self._state_values.items():
+            if isinstance(value, list):
+                self._state_values[key] = [v.detach().cpu() if isinstance(v, Tensor) else v for v in value]
+
+    # ragged list states grow one tensor per update with no bound; past this many
+    # items in all the metric warns ONCE (per class or per instance)
+    list_state_warn_threshold: int = 10_000
+
+    def _check_list_state_growth(self) -> None:
+        """Surface unbounded ragged-list growth: the ``state.list_items`` gauge while
+        tracing is on, and one warning per metric instance past the threshold."""
+        items = 0
+        per_state = None
+        for key, value in self._state_values.items():
+            if isinstance(value, list):
+                items += len(value)
+                if per_state is None:
+                    per_state = []
+                per_state.append((key, len(value)))
+        if not items:
+            return
+        if _trace.ENABLED:
+            # per-instance label: two metrics of one class keep their own curves
+            _trace.set_gauge(
+                "state.list_items", items, metric=type(self).__name__, inst=self._obs_instance, **self._obs_labels()
+            )
+        if items > self.list_state_warn_threshold and not self._warned_list_growth:
+            self._warned_list_growth = True
+            detail = ", ".join(f"{key}: {count} items" for key, count in per_state)
+            if _trace.ENABLED:
+                _trace.event("state.list_growth", metric=type(self).__name__, items=items, detail=detail)
+            rank_zero_warn(
+                f"{type(self).__name__} holds {items} ragged list-state items"
+                f" (threshold {self.list_state_warn_threshold}): {detail}. List states"
+                " grow one tensor per update with no bound — on a long run this is an"
+                " OOM in waiting. Call compute()+reset() periodically, use a"
+                " MaskedBuffer-backed binned variant, or raise"
+                " `list_state_warn_threshold` if the growth is intended.",
+                RuntimeWarning,
+            )
 
     def _traced_state(self) -> Dict[str, Any]:
         """The bound state as a captured update takes it: ``MaskedBuffer`` counts as
@@ -537,7 +663,7 @@ class Metric(torch.nn.Module, ABC):
         """Whether the streaming engine may fold this metric's updates into a fused
         chunk: not ``jit_update=False``, and no ragged list states (a chunk's state
         needs a fixed structure across steps)."""
-        return self._jit_update_flag is not False and not any(isinstance(v, list) for v in self._defaults.values())
+        return self._jit_update_flag is not False and not self._has_list_defaults()
 
     def _engine_commit_state(self, state: Dict[str, Any], n_batches: int) -> None:
         """Install a fused-chunk result as the accumulated state.
@@ -558,6 +684,9 @@ class Metric(torch.nn.Module, ABC):
         self._update_count += n_batches
         self.updates_ok += n_batches
         self.last_update_ok = True
+        if _scope.ENABLED:
+            # a fused chunk is n_batches tenant updates, as the per-batch path bills them
+            _scope.note_update(self._obs_tenant, n_batches)
 
     # ------------------------------------------------------------------------ forward
 
@@ -758,12 +887,17 @@ class Metric(torch.nn.Module, ABC):
                 _trace.inc("metric.compute_cached", metric=type(self).__name__)
             return self._computed
         if _trace.ENABLED:
-            with _trace.span("metric.compute", metric=type(self).__name__):
+            with _trace.span("metric.compute", metric=type(self).__name__, **self._obs_labels()):
                 value = self._compute_synced_value()
         else:
             value = self._compute_synced_value()
         if self.compute_with_cache:
             self._computed = value
+        if _scope.ENABLED:
+            # fresh computes only (a cache hit above is the same evaluation)
+            _scope.note_compute(self._obs_tenant)
+        if _values.ENABLED:
+            _values.record_compute(self, value)
         return value
 
     def _compute_synced_value(self) -> Any:
@@ -880,8 +1014,9 @@ class Metric(torch.nn.Module, ABC):
         self._is_synced = False
 
     def set_dtype(self, dst_type: torch.dtype) -> "Metric":
-        """Cast floating-point states to ``dst_type``; drops the capture cache, whose
-        variants were captured for the old types."""
+        """Cast floating-point states to ``dst_type`` (recorded as :attr:`dtype`);
+        drops the capture cache, whose variants were captured for the old types."""
+        self._dtype = dst_type
 
         def _cast(v: Tensor) -> Tensor:
             return v.to(dst_type) if v.is_floating_point() else v
@@ -893,6 +1028,10 @@ class Metric(torch.nn.Module, ABC):
                 self._state_values[key] = _map_state(value, _cast)
         self._jitted_update = None
         return self
+
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move the states to ``device`` (the JAX package's name for ``.to``)."""
+        return self.to(device)
 
     # ---------------------------------------------------------------- (de)serialization
 

@@ -12,8 +12,16 @@ Counterpart of ``torchmetrics_tpu/engine``:
 - :mod:`~torchmetrics_tpu_torch.engine.warmup` — the warmup manifest of what a warmup
   pass captured; there is no persistent cache (a CUDA graph cannot be written out).
 
-The tenant multiplexer (``engine/mux.py``) and live-session checkpoint and migration
-(``engine/migrate.py``) come with their slices.
+- :mod:`~torchmetrics_tpu_torch.engine.migrate` — **live-session checkpoint/restore
+  and continuous crash-consistent checkpointing**: a running pipeline session is
+  drained, checkpointed into a session bundle (the JAX package's format, letter for
+  letter) and restored elsewhere, bit-identical; a
+  :class:`~torchmetrics_tpu_torch.engine.migrate.CheckpointPolicy` writes delta
+  bundles at chunk-commit boundaries, and after an unplanned death
+  :func:`~torchmetrics_tpu_torch.engine.migrate.latest_valid_bundle` +
+  :func:`~torchmetrics_tpu_torch.engine.migrate.restore_session` recover the session.
+
+The tenant multiplexer (``engine/mux.py``) comes with its slice.
 
 Quick start::
 
@@ -25,6 +33,18 @@ Quick start::
     value = metric.compute()
 """
 
+from torchmetrics_tpu_torch.engine.migrate import (
+    SESSION_SCHEMA,
+    CheckpointPolicy,
+    SessionBundleError,
+    checkpoint_session,
+    checkpoint_staleness_rule,
+    compact_chain,
+    latest_valid_bundle,
+    restore_session,
+    sweep_bundles,
+    verify_bundle,
+)
 from torchmetrics_tpu_torch.engine.pipeline import FLIGHT_DIR_ENV, MetricPipeline, PipelineConfig, PipelineReport
 from torchmetrics_tpu_torch.engine.warmup import (
     CACHE_ENV_VAR,
@@ -40,14 +60,24 @@ from torchmetrics_tpu_torch.engine.warmup import (
 __all__ = [
     "CACHE_ENV_VAR",
     "FLIGHT_DIR_ENV",
+    "SESSION_SCHEMA",
+    "CheckpointPolicy",
     "MetricPipeline",
     "PipelineConfig",
     "PipelineReport",
+    "SessionBundleError",
     "build_manifest",
+    "checkpoint_session",
+    "checkpoint_staleness_rule",
+    "compact_chain",
     "configure_compile_cache",
     "configured_cache_dir",
+    "latest_valid_bundle",
     "load_manifest",
     "persistent_cache_stats",
     "pow2_buckets",
+    "restore_session",
     "save_manifest",
+    "sweep_bundles",
+    "verify_bundle",
 ]

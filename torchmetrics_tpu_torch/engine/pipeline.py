@@ -17,8 +17,9 @@ what the card wants:
   batches and one of 8 share a graph. A batch whose shapes or statics differ from the
   open chunk flushes it first, preserving stream order. With ``fuse=1`` each batch is
   one replay of the leaders' update, counted as a per-batch dispatch as in JAX.
-- **Stacking** writes the chunk's batches straight into the captured graph's input
-  buffers (``torch.stack(..., out=...)``): one device copy per chunk.
+- **Stacking** stacks each column of the chunk's batches into a fresh tensor along the
+  step axis (``torch.stack``); the capture cache copies it into the graph's input
+  buffers before the replay.
 - **Prefetch** — :meth:`run` keeps ``prefetch`` upcoming batches on the target's
   device ahead of use (non-blocking copies; nothing to do for batches already there).
 - **Bounded in-flight dispatch** — the pipeline never synchronises per step; it
@@ -36,12 +37,23 @@ Telemetry (``obs/trace.py``, off by default) keeps the JAX package's names:
 prefetch hit/miss, padded-step, degrade and flight-dump counters. :meth:`report`
 returns the same accounting as plain ints.
 
-The pipeline drives **update-only** accumulation (N updates, one ``compute``). The
-JAX pipeline's tenant sessions, admission, value alerts, continuous checkpoints and
-session leases (``PipelineConfig.tenant``, ``admission``, ``alert_engine``,
-``checkpoint``, ``lease_seconds``) need the tenant scope, the alert engine, fencing
-and session bundles, which come with the mux and migrate slices: setting one raises
-``NotImplementedError``.
+The pipeline drives **update-only** accumulation (N updates, one ``compute``). It is
+also a **session**, as in the JAX package:
+
+- ``tenant`` makes it a tenant session (``obs/scope.py``): every public entry point
+  runs under ``scope.session``, the driven metrics adopt the tenant, and the registry
+  counts the session in ``active_pipelines``.
+- ``alert_engine`` evaluates value watchdogs (``obs/alerts.py``) every
+  ``alert_every``-th commit over a sync-free sample of the values
+  (``obs/values.sample_local``) and dumps the flight ring when a value rule fires.
+- ``checkpoint`` writes crash-consistent session bundles (``engine/migrate.py``) at
+  chunk-commit boundaries; :meth:`drain` and :meth:`replay_tail` are the two halves
+  of a live migration.
+- every session holds a lease (``robust/fence.py``) minted under its lineage epoch,
+  renewed at about ``lease_seconds / 4`` and released at :meth:`close`.
+
+Cost-aware admission (``PipelineConfig.admission``) prices batches by the cost
+ledger of the multiplexer slice: setting it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import os
 import tempfile
 import time
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass, fields, replace
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
@@ -59,7 +72,9 @@ import numpy as np
 import torch
 
 import torchmetrics_tpu_torch.obs.lineage as _lineage
+import torchmetrics_tpu_torch.obs.scope as _scope
 import torchmetrics_tpu_torch.obs.trace as _trace
+import torchmetrics_tpu_torch.obs.values as _values
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.core.jit import (
@@ -75,6 +90,7 @@ from torchmetrics_tpu_torch.core.jit import (
 from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.engine import warmup as _warmup
 from torchmetrics_tpu_torch.robust import faults as _faults
+from torchmetrics_tpu_torch.robust import fence as _fence
 from torchmetrics_tpu_torch.robust.policy import effective_policy, nonfinite_step_indices
 from torchmetrics_tpu_torch.utils.fileio import atomic_write_text
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -85,8 +101,6 @@ __all__ = ["FLIGHT_DIR_ENV", "FLIGHT_SCHEMA", "MetricPipeline", "PipelineConfig"
 FLIGHT_DIR_ENV = "TM_TPU_FLIGHT_DIR"
 # wire format of a dump file (meta line `schema` field), the JAX package's
 FLIGHT_SCHEMA = 1
-
-_DEFAULT_LEASE_SECONDS = 30.0
 
 
 def _not_ported(option: str, slice_name: str) -> NotImplementedError:
@@ -115,12 +129,28 @@ class PipelineConfig:
             environment variable, else ``<tempdir>/tm_tpu_flight``.
         flight_max_dumps: hard cap on dump files one pipeline writes; suppressed
             dumps are counted (``flight.dumps_suppressed``).
-        tenant, alert_engine, admission, checkpoint, lease_seconds: the JAX
-            pipeline's tenant-session, value-alert, admission, continuous-checkpoint
-            and lease seams. Any but the default raises ``NotImplementedError`` until
-            the mux, obs-plane and migrate slices port them (with them, the JAX
-            options ``alert_every`` and ``max_deferred`` and the admission counters
-            of the report).
+        tenant: name this pipeline a **tenant session** (``obs/scope.py``): every
+            dispatch, commit, flight record and value sample runs under the tenant's
+            scope, the driven metrics adopt the tenant, and the registry tracks the
+            session's liveness. ``None`` (default) keeps the untenanted session.
+        alert_engine: an :class:`~torchmetrics_tpu_torch.obs.alerts.AlertEngine` to
+            evaluate at commits: the values are sampled sync-free
+            (``obs.values.sample_local``), the rules run, and a newly firing *value*
+            watchdog dumps the flight ring. ``None`` (default) disables the seam.
+        alert_every: evaluate the alert engine every Nth commit (``close()`` always
+            runs a final evaluation).
+        admission: the JAX pipeline's cost-aware admission; it comes with the
+            multiplexer slice, so anything but ``None`` raises ``NotImplementedError``.
+        checkpoint: a :class:`~torchmetrics_tpu_torch.engine.migrate.CheckpointPolicy`
+            — **continuous checkpointing**: bundles every N batches / T seconds at
+            chunk-commit boundaries (no drain, chunk-consistent by construction),
+            delta-encoded, compacted every ``full_every``-th write, swept, and found
+            again by ``latest_valid_bundle`` after an unplanned death. ``None``
+            (default) disables.
+        lease_seconds: TTL of the session's renewable wall-clock **lease**
+            (``robust/fence.py``), minted per session epoch, renewed on ingest and
+            commit (at most every ~TTL/4) and stamped into every bundle, which makes
+            the epoch a fencing token. Default 30 s.
     """
 
     fuse: int = 8
@@ -133,11 +163,14 @@ class PipelineConfig:
     flight_max_dumps: int = 16
     tenant: Optional[str] = None
     alert_engine: Any = None
+    alert_every: int = 1
     admission: Any = None
     checkpoint: Any = None
-    lease_seconds: float = _DEFAULT_LEASE_SECONDS
+    lease_seconds: float = 30.0
 
     def __post_init__(self) -> None:
+        if self.tenant is not None:
+            _scope.validate_tenant(self.tenant)
         if self.fuse < 1:
             raise ValueError(f"Expected `fuse` >= 1, got {self.fuse}")
         if self.lease_seconds <= 0:
@@ -150,6 +183,8 @@ class PipelineConfig:
             raise ValueError(f"Expected `flight_records` >= 0, got {self.flight_records}")
         if self.flight_max_dumps < 0:
             raise ValueError(f"Expected `flight_max_dumps` >= 0, got {self.flight_max_dumps}")
+        if self.alert_every < 1:
+            raise ValueError(f"Expected `alert_every` >= 1, got {self.alert_every}")
         if self.fuse_buckets is not None:
             buckets = tuple(sorted(set(int(b) for b in self.fuse_buckets)))
             if not buckets or buckets[0] < 1:
@@ -157,12 +192,8 @@ class PipelineConfig:
             if buckets[-1] < self.fuse:
                 buckets = buckets + (self.fuse,)
             self.fuse_buckets = buckets
-        for option, slice_name in (("tenant", "mux"), ("admission", "mux"), ("alert_engine", "obs plane"),
-                                   ("checkpoint", "migrate")):
-            if getattr(self, option) is not None:
-                raise _not_ported(option, slice_name)
-        if self.lease_seconds != _DEFAULT_LEASE_SECONDS:
-            raise _not_ported("lease_seconds", "migrate")
+        if self.admission is not None:
+            raise _not_ported("admission", "multiplexer (engine/mux.py)")
 
     def buckets(self) -> Tuple[int, ...]:
         if self.fuse_buckets is not None:
@@ -264,6 +295,7 @@ class _FlightRecorder:
         self.inst = inst
         self.dump_dir = dump_dir
         self.max_dumps = max_dumps
+        self.tenant: Optional[str] = None
         self._ring: deque = deque(maxlen=capacity)
         self.dump_paths: List[str] = []
         self.dumps_suppressed = 0
@@ -293,6 +325,12 @@ class _FlightRecorder:
         """Copies of the live ring, oldest first (safe to mutate/serialize)."""
         return [{**r, "stages": dict(r["stages"])} for r in self._ring]
 
+    def restore_records(self, records: List[dict]) -> None:
+        """Refill the ring from serialized records (oldest first, bounded): a restored
+        session's first fault dump still carries the lineage from before the move."""
+        for record in records or []:
+            self._ring.append({**record, "stages": dict(record.get("stages") or {})})
+
     def dump(
         self, reason: str, poisoned: List[int], config: Dict[str, Any], poisoned_trace_ids: Optional[List[str]] = None
     ) -> Optional[str]:
@@ -308,7 +346,7 @@ class _FlightRecorder:
             "schema": FLIGHT_SCHEMA,
             "pipeline": self.pipeline,
             "inst": self.inst,
-            "tenant": None,
+            "tenant": self.tenant,
             "reason": reason,
             "poisoned_batches": sorted(set(poisoned)),
             "poisoned_trace_ids": sorted(set(poisoned_trace_ids or [])),
@@ -417,6 +455,70 @@ class MetricPipeline:
             )
         else:
             self._flight = None
+        self._alert_engine = config.alert_engine
+        self._alert_commits = 0
+        self._alert_warned = False
+        self._tenant: Optional[str] = None
+        self._tenant_closed = False
+        if config.tenant is not None:
+            # a tenant pipeline IS a session: register liveness, and adopt the tenant
+            # onto the driven metrics so their own paths stay attributed
+            self._tenant = _scope.adopt(config.tenant)
+            _scope.get_registry().pipeline_started(self._tenant)
+            targets: List[Any] = [self._target]
+            if self._is_collection:
+                targets += list(self._target._modules.values())
+            for m in targets:
+                if getattr(m, "_obs_tenant", None) is None:
+                    m._obs_tenant = self._tenant
+            if self._flight is not None:
+                self._flight.tenant = self._tenant
+        self._checkpointer = None
+        if config.checkpoint is not None:
+            # lazy import: migrate.py imports this module at load time
+            from torchmetrics_tpu_torch.engine.migrate import ContinuousCheckpointer
+
+            self._checkpointer = ContinuousCheckpointer(config.checkpoint, tenant=self._tenant, label=self._label)
+        # the session lease (robust/fence.py): minted per session epoch — the fencing
+        # token — renewed on ingest and commit (at most every ~TTL/4) and stamped into
+        # every bundle. A restore that adopts a bundled epoch re-mints under it.
+        self._lease = _fence.mint_lease(self._tenant, epoch=self._lineage_epoch, ttl_seconds=config.lease_seconds)
+        self._lease_renew_at = time.time() + config.lease_seconds / 4.0
+
+    # --------------------------------------------------------------------- session
+
+    def _renew_lease(self, force: bool = False) -> None:
+        """Renew the session lease, at most every ~TTL/4 unless forced."""
+        now = time.time()
+        if not force and now < self._lease_renew_at:
+            return
+        _fence.renew_lease(self._lease, self._tenant, now=now)
+        self._lease_renew_at = now + self._lease["ttl_seconds"] / 4.0
+
+    def lease_snapshot(self) -> Dict[str, Any]:
+        """The lease stamp a checkpoint bundle carries, freshly renewed: every bundle
+        write doubles as a lease renewal other hosts can see."""
+        self._renew_lease(force=True)
+        return {key: self._lease[key] for key in ("holder", "epoch", "ttl_seconds", "expires_unix", "renewed_unix")}
+
+    def _maybe_checkpoint(self, force: bool = False) -> Optional[str]:
+        """Continuous-checkpoint hook, called at chunk-commit boundaries only — so
+        every periodic bundle is chunk-consistent without a drain."""
+        self._renew_lease()
+        if self._checkpointer is None:
+            return None
+        return self._checkpointer.maybe_pipeline(self, force=force)
+
+    def checkpoint_now(self) -> Optional[str]:
+        """Force one continuous-checkpoint bundle (cadence bypassed); returns its path,
+        or ``None`` without a configured ``CheckpointPolicy``."""
+        with self._tenant_ctx():
+            return self._maybe_checkpoint(force=True)
+
+    def _tenant_ctx(self):
+        """The session scope every public entry point runs under (a no-op when the
+        pipeline is untenanted): ``scope.session`` sets only the contextvar."""
+        return _scope.session(self._tenant) if self._tenant is not None else nullcontext()
 
     # ------------------------------------------------------------------ public API
 
@@ -439,7 +541,7 @@ class MetricPipeline:
 
     def trace_id_for(self, ordinal: int) -> str:
         """The (deterministic) trace id of this session's ``ordinal``-th fed batch."""
-        return _lineage.mint(None, self._lineage_epoch, ordinal)
+        return _lineage.mint(self._tenant, self._lineage_epoch, ordinal)
 
     def flight_records(self) -> List[dict]:
         """Copies of the flight-recorder ring (empty when ``flight_records=0``)."""
@@ -450,6 +552,54 @@ class MetricPipeline:
         """Paths of the fault dumps this pipeline has written."""
         return list(self._flight.dump_paths) if self._flight is not None else []
 
+    def flight_snapshot(self) -> Dict[str, Any]:
+        """Serializable flight-recorder state (the session-bundle seam)."""
+        if self._flight is None:
+            return {"records": [], "dumps_written": 0, "dumps_suppressed": 0}
+        return {
+            "records": self._flight.records(),
+            "dumps_written": len(self._flight.dump_paths),
+            "dumps_suppressed": self._flight.dumps_suppressed,
+        }
+
+    def _restore_flight(self, snapshot: Dict[str, Any]) -> None:
+        """Refill the flight ring from a session bundle: dump *files* stay on the
+        origin host; the ring and the suppressed count move."""
+        if self._flight is None or not snapshot:
+            return
+        self._flight.restore_records(snapshot.get("records") or [])
+        self._flight.dumps_suppressed += int(snapshot.get("dumps_suppressed", 0) or 0)
+
+    def _restore_report(self, totals: Dict[str, Any]) -> None:
+        """Adopt a checkpointed session's accounting: the restored pipeline keeps
+        counting from the origin's totals, and so does its ingest ordinal."""
+        for f in fields(PipelineReport):
+            if f.name in totals:
+                setattr(self._report, f.name, int(totals[f.name]))
+        self._ingested = max(self._ingested, int(totals.get("batches", 0) or 0))
+
+    def _restore_lineage(self, cursor: Dict[str, Any], fresh_epoch: bool = False) -> None:
+        """Adopt the bundled session's lineage identity and chunk ordinal.
+
+        The epoch and arrival counter make post-restore mints continue the origin
+        session's id space (a crash-recovery gap re-feed reproduces the lost batches'
+        ids); ``chunk_seq`` continues too. ``fresh_epoch=True`` is the **failover**
+        variant: the counter continues under a newly minted epoch, the new fencing
+        token. Either way the lease is re-minted under the session's final epoch.
+        """
+        lineage_row = cursor.get("lineage") or {}
+        if lineage_row.get("epoch"):
+            if not fresh_epoch:
+                self._lineage_epoch = str(lineage_row["epoch"])
+            self._lineage_seq = max(self._lineage_seq, int(lineage_row.get("seq", 0) or 0))
+        if cursor.get("chunk_seq") is not None:
+            self._chunk_seq = max(self._chunk_seq, int(cursor["chunk_seq"]))
+        if self._lease["epoch"] != self._lineage_epoch:
+            self._lease = _fence.mint_lease(
+                self._tenant, epoch=self._lineage_epoch, ttl_seconds=self.config.lease_seconds
+            )
+            self._lease_renew_at = time.time() + self.config.lease_seconds / 4.0
+
     def cache_info(self) -> List[Dict[str, Any]]:
         """The capture caches' accounting (``StaticLeafJit.cache_info``) of the fused
         and per-batch functions: their replays are the pipeline's graph launches."""
@@ -457,7 +607,8 @@ class MetricPipeline:
 
     def feed(self, *args: Any, **kwargs: Any) -> None:
         """Ingest one batch (positional/keyword update arguments)."""
-        self._ingest(args, kwargs)
+        with self._tenant_ctx():
+            self._ingest(args, kwargs)
 
     def run(self, batches: Iterable[Any]) -> PipelineReport:
         """Consume a stream of batches with device prefetch; flushes at the end.
@@ -465,6 +616,10 @@ class MetricPipeline:
         Each item is a tuple of positional update args, a dict of keyword args, or a
         single tensor. Returns the accumulated :class:`PipelineReport`.
         """
+        with self._tenant_ctx():
+            return self._run(batches)
+
+    def _run(self, batches: Iterable[Any]) -> PipelineReport:
         lookahead = max(1, self.config.prefetch)
         it = iter(batches)
         pending: deque = deque()  # (args, kwargs, ingested-count at enqueue, stage timings)
@@ -508,23 +663,88 @@ class MetricPipeline:
 
     def flush(self) -> None:
         """Dispatch the open partial chunk (padded up to its bucket)."""
-        if self._chunk is not None and len(self._chunk):
-            self._dispatch_chunk()
-        self._check_buffer_overflow()
+        with self._tenant_ctx():
+            if self._chunk is not None and len(self._chunk):
+                self._dispatch_chunk()
+            self._check_buffer_overflow()
 
-    def close(self) -> PipelineReport:
-        """Flush, drain the in-flight window, and return the final report."""
-        self.flush()
+    def _wait_inflight(self) -> None:
+        """Wait on every outstanding ticket: the state is then the fold of every
+        dispatched batch, on the card as on the host."""
         while self._inflight:
             self._wait(self._inflight.popleft())
         if _trace.ENABLED:
             _trace.set_gauge("engine.in_flight", 0, pipeline=self._label, inst=self._instance)
+
+    def drain(self) -> List[Tuple[tuple, dict, Optional[str]]]:
+        """Quiesce the pipeline for a checkpoint; returns the **replay tail**.
+
+        The first step of the drain → checkpoint → restore → replay-tail migration
+        (:mod:`torchmetrics_tpu_torch.engine.migrate`): the open fusion chunk is
+        dispatched and every in-flight ticket is waited on, after which the metric
+        state is exactly the fold of every dispatched batch. The tail is the batches
+        ingested but never folded — the JAX pipeline's admission-deferred backlog,
+        which needs the multiplexer slice's admission, so here it is always empty.
+        Items are ``(args, kwargs, trace_id)``, as :meth:`replay_tail` takes them.
+        The session stays open.
+        """
+        with self._tenant_ctx():
+            if self._chunk is not None and len(self._chunk):
+                self._dispatch_chunk()
+            self._wait_inflight()
+            return []
+
+    def replay_tail(self, batches: Iterable[tuple]) -> int:
+        """Re-ingest checkpointed tail batches on the restored host, in order.
+
+        Each item is ``(args, kwargs)`` or ``(args, kwargs, trace_id)``; a trace id
+        is re-adopted, so the batch keeps the identity it was fed under on the origin
+        host. (The JAX method's ``deferred`` count of an admission-deferred backlog
+        comes with the multiplexer slice.) Returns the number of batches replayed.
+        """
+        n = 0
+        with self._tenant_ctx():
+            for item in batches:
+                args, kwargs = item[0], item[1]
+                trace_id = item[2] if len(item) > 2 else None
+                self._ingest(tuple(args), dict(kwargs), trace_id=trace_id)
+                n += 1
+        return n
+
+    def close(self) -> PipelineReport:
+        """Flush, drain the in-flight window, write the closing bundle of a
+        checkpointed session, run a last alert evaluation, end the session and
+        release its lease; returns the final report."""
+        try:
+            with self._tenant_ctx():
+                self.flush()
+                self._wait_inflight()
+                # the bundle stream ends complete (skipped when the cadence already
+                # covered the final commit: no byte-identical duplicate on shutdown)
+                if self._checkpointer is not None and self._report.batches:
+                    self._checkpointer.maybe_pipeline(self, force=True, skip_if_covered=True)
+                self._evaluate_alerts(force=True)
+        finally:
+            # the session ends exactly once, however many times close() runs, also
+            # when a raise-policy flush propagates
+            if self._tenant is not None and not self._tenant_closed:
+                self._tenant_closed = True
+                _scope.get_registry().pipeline_finished(self._tenant)
+                if self._checkpointer is not None:
+                    # a closed session promises no checkpoint freshness
+                    _scope.note_checkpoint_closed(self._tenant)
+            # a cleanly released lease is not a hung host: it must never age into the
+            # watchdog's stale set
+            key = self._tenant if self._tenant is not None else "__local__"
+            if _scope.lease_status().get(key, {}).get("epoch") == self._lease["epoch"]:
+                _scope.note_lease_released(self._tenant)
         return self.report()
 
     def compute(self) -> Any:
         """Flush then compute the target — the epoch-end convenience."""
-        self.flush()
-        return self._target.compute()
+        with self._tenant_ctx():
+            self.flush()
+            return self._target.compute()
 
     def __enter__(self) -> "MetricPipeline":
         return self
@@ -545,6 +765,10 @@ class MetricPipeline:
         first steps are pure cache hits. Returns (and stores) the warmup manifest;
         ``manifest_path`` also writes it as JSON.
         """
+        with self._tenant_ctx():
+            return self._warmup_scoped(args, kwargs, manifest_path)
+
+    def _warmup_scoped(self, args: tuple, kwargs: dict, manifest_path: Optional[str]) -> Dict[str, Any]:
         leaves, treedef = tree_flatten((args, kwargs))
         traced, template, unhashable = partition_static_leaves(leaves)
         if unhashable is not None:
@@ -607,13 +831,22 @@ class MetricPipeline:
 
         return tuple(_put(a) for a in args), {k: _put(v) for k, v in kwargs.items()}
 
-    def _ingest(self, args: tuple, kwargs: dict, stages: Optional[Dict[str, float]] = None) -> None:
-        trace_id = None
-        if _lineage.ENABLED:
+    def _ingest(
+        self,
+        args: tuple,
+        kwargs: dict,
+        stages: Optional[Dict[str, float]] = None,
+        trace_id: Optional[str] = None,
+    ) -> None:
+        self._renew_lease()  # at most every ~TTL/4: a live stream keeps the lease warm
+        if _lineage.ENABLED and trace_id is None:
             ordinal = self._lineage_seq
             self._lineage_seq += 1
             trace_id = self.trace_id_for(ordinal)
-            _lineage.get_index().open(trace_id, None, ordinal)
+            _lineage.get_index().open(trace_id, self._tenant, ordinal)
+        elif trace_id is not None and _lineage.ENABLED:
+            # a pre-minted id (tail replay after a migration): an idempotent re-open
+            _lineage.get_index().open(trace_id, self._tenant, _lineage.ordinal_of(trace_id))
         if _faults.update_faults_active():
             # injected faults apply ONCE per ingested batch, at the pipeline seam;
             # downstream metric.update calls are told not to re-apply
@@ -877,6 +1110,8 @@ class MetricPipeline:
             index = _lineage.get_index()
             for tid in chunk_ids:
                 index.update(tid, chunk_id=cid, path="fused", outcome="ok")
+        self._maybe_checkpoint()
+        self._evaluate_alerts(trace_ids=chunk_ids)
 
     def _commit(self, new_state: Any, n: int) -> None:
         if self._is_collection:
@@ -942,7 +1177,7 @@ class MetricPipeline:
             "max_in_flight": self.config.max_in_flight,
             "prefetch": self.config.prefetch,
             "buckets": list(self._buckets),
-            "tenant": None,
+            "tenant": self._tenant,
         }
         path = self._flight.dump(reason, poisoned, config, poisoned_trace_ids=trace_ids)
         if path is not None:
@@ -1014,6 +1249,8 @@ class MetricPipeline:
                     [record["batch_index"]] if record is not None else [],
                     trace_ids=[trace_id] if trace_id is not None else None,
                 )
+        self._maybe_checkpoint()
+        self._evaluate_alerts(trace_ids=[trace_id] if trace_id is not None else ())
 
     def _drive_eager_leaders(self, args: tuple, kwargs: dict, count: bool = True) -> None:
         def _run() -> None:
@@ -1068,6 +1305,8 @@ class MetricPipeline:
                     [record["batch_index"]] if record is not None else [],
                     trace_ids=[trace_id] if trace_id is not None else None,
                 )
+        self._maybe_checkpoint()
+        self._evaluate_alerts(trace_ids=[trace_id] if trace_id is not None else ())
 
     def _replay_chunk(self, chunk: _Chunk, cid: int) -> None:
         """Per-batch replay of a degraded chunk: the metrics' own guarded updates
@@ -1145,6 +1384,59 @@ class MetricPipeline:
         for record in chunk.records:
             record["stages"]["blocked_on_inflight"] = round(waited, 6)
         self._dump_flight("chunk_replay", poisoned, trace_ids=poisoned_ids)
+        self._maybe_checkpoint()
+        self._evaluate_alerts(trace_ids=[t for t in chunk.trace_ids if t is not None])
+
+    # ------------------------------------------------------------ alerting seam
+
+    def _evaluate_alerts(self, force: bool = False, trace_ids: Iterable[str] = ()) -> None:
+        """Value-health evaluation at a commit (``config.alert_engine``).
+
+        Samples the target's values sync-free (no collective mid-stream, no compute
+        cache touched; on the card, after the replay and outside any capture), runs
+        the rules, and — when a *value* watchdog newly fires — dumps the flight ring
+        so the bad value arrives with the batch lineage that produced it. A broken
+        engine warns once and the stream keeps flowing.
+        """
+        engine = self._alert_engine
+        if engine is None:
+            return
+        self._alert_commits += 1
+        if not force and self._alert_commits % self.config.alert_every:
+            return
+        try:
+            # sample into the ENGINE's value log, so mid-stream samples reach its rules
+            log_hook = getattr(engine, "_log", None)
+            _values.sample_local(self._target, log=log_hook() if callable(log_hook) else None)
+            transitions = engine.evaluate()
+        except Exception as err:
+            if not self._alert_warned:
+                self._alert_warned = True
+                rank_zero_warn(
+                    f"Alert evaluation failed on the {self._label} pipeline"
+                    f" ({type(err).__name__}: {err}). The stream keeps flowing and"
+                    " evaluation will keep being attempted per chunk, but further"
+                    " failures are silent (this warning fires once) and value"
+                    " watchdogs may be stale.",
+                    RuntimeWarning,
+                )
+            return
+        fired = [t for t in transitions if t["to"] == "firing" and t.get("source") == "values"]
+        if not fired:
+            return
+        rules = sorted({t["rule"] for t in fired})
+        _lineage.note_alert(list(trace_ids), rules)
+        if _trace.ENABLED:
+            _trace.inc("engine.value_alerts", len(fired), pipeline=self._label)
+            _trace.event(
+                "engine.value_alert",
+                pipeline=self._label,
+                rules=",".join(rules),
+                series=",".join(sorted({t["series"] for t in fired})),
+            )
+        # a value watchdog firing mid-stream IS a fault: ship the last batches'
+        # lineage with the alert names attached (the value broke, not an input)
+        self._dump_flight("value_alert:" + ",".join(rules), [])
 
     # -------------------------------------------------------------------- plumbing
 

@@ -8,13 +8,19 @@ Counterpart of ``torchmetrics_tpu/obs``, as far as the engine slice needs it:
 - :mod:`~torchmetrics_tpu_torch.obs.lineage` — a stable ``trace_id`` per batch fed
   to a ``MetricPipeline``, a bounded index of per-batch records, and histogram
   exemplars.
+- :mod:`~torchmetrics_tpu_torch.obs.scope` — tenant/session attribution: a
+  contextvar ``scope(tenant)``, the bounded tenant registry, and the migration,
+  checkpoint, lease and fence notes of the session engine.
+- :mod:`~torchmetrics_tpu_torch.obs.values` and
+  :mod:`~torchmetrics_tpu_torch.obs.alerts` — per-metric value timelines and the
+  declarative watchdogs over them.
 
 The exporters, profiler hooks, cross-host aggregation, memory and cost accounting,
-value timelines, alerts, audit, tenant scope and the obs server come with the obs
-plane (ROADMAP Queue 1 item 6) and the mux slice.
+the audit plane and the obs server come with the obs plane (ROADMAP Queue 1 item 4)
+and the multiplexer slice.
 """
 
-from torchmetrics_tpu_torch.obs import lineage, trace
+from torchmetrics_tpu_torch.obs import alerts, lineage, scope, trace, values
 from torchmetrics_tpu_torch.obs.trace import (
     TraceRecorder,
     annotate_current_span,
@@ -33,6 +39,7 @@ from torchmetrics_tpu_torch.obs.trace import (
 
 __all__ = [
     "TraceRecorder",
+    "alerts",
     "annotate_current_span",
     "disable",
     "enable",
@@ -44,7 +51,9 @@ __all__ = [
     "observe",
     "observe_duration",
     "record_warning",
+    "scope",
     "set_gauge",
     "span",
     "trace",
+    "values",
 ]

@@ -2,14 +2,19 @@
 
 Counterpart of ``torchmetrics_tpu/obs/lineage.py``, plain Python as there. A batch
 has no identity that survives the engine's seams (fusion chunking, poisoned-batch
-replay), so this module gives it one:
+replay, ``replay_tail()`` after a migration, the crash-recovery gap re-feed), so this
+module gives it one:
 
 - :func:`mint` — a **stable, deterministic** trace id per fed batch:
   ``<tenant>-<session epoch>-<ingest ordinal>``. The epoch is minted once per
-  pipeline session and the ordinal is the session's arrival counter.
+  pipeline session and *persisted in session bundles*
+  (:mod:`torchmetrics_tpu_torch.engine.migrate`), and the ordinal is the session's
+  arrival counter (restored across migration and crash recovery), so the same
+  logical batch carries the same id on whichever process finally folds it.
 - :class:`LineageIndex` — a **bounded**, thread-safe, process-wide index of
   per-batch lineage records (tenant, ordinal, ingest stamp, signature, chunk
-  membership, dispatch path, fault outcome, the flight dump that named it).
+  membership, dispatch path, fault outcome, the flight dump that named it, the
+  alert rules its commit fired, the checkpoint bundle that covers it).
   Drop-oldest past ``max_traces`` with an ``evicted`` counter.
 - :func:`trace` — a contextvar carrying the *current* batch's id through a
   dispatch, so duration histograms can attach **exemplars**
@@ -17,9 +22,8 @@ replay), so this module gives it one:
   ``trace_id`` attrs (never histogram labels: ids are unbounded).
 
 The disabled path is one branch: :data:`ENABLED` stays ``False`` until
-:func:`enable` is called, and every engine hook guards on it. The session
-bundles that persist an epoch across hosts, the tenant registry and the obs
-server that reads the index come with the migrate, mux and obs slices.
+:func:`enable` is called, and every engine hook guards on it. The obs server that
+reads the index (``GET /trace/<id>``) comes with the obs plane.
 """
 
 from __future__ import annotations
@@ -46,8 +50,10 @@ __all__ = [
     "lookup",
     "mint",
     "new_epoch",
-    "ordinal_of",
+    "note_alert",
+    "note_checkpoint",
     "note_dump",
+    "ordinal_of",
     "reset",
     "trace",
     "trace_ids",
@@ -72,8 +78,9 @@ LOCAL_TENANT = "__local__"
 def new_epoch() -> str:
     """A fresh session epoch (random, unique per session *start*).
 
-    A session keeps its epoch for its life; the session bundles that carry it
-    across a migration come with the migrate slice.
+    Sessions persist their epoch in checkpoint bundles and restores re-adopt it, so
+    a batch re-fed after a migration or crash carries the id it was first minted
+    with.
     """
     return uuid.uuid4().hex[:12]
 
@@ -101,8 +108,7 @@ def ordinal_of(trace_id: str) -> int:
 def epoch_of(trace_id: str) -> Optional[str]:
     """The session epoch a minted id carries (``None`` on a foreign id).
 
-    The JAX package also uses the epoch as a session's fencing token; the port's
-    fencing comes with the migrate slice.
+    The epoch doubles as the session's **fencing token** (``robust/fence.py``).
     """
     parts = trace_id.rsplit("-", 2)
     if len(parts) != 3 or not parts[1]:
@@ -132,6 +138,9 @@ class LineageIndex:
     def clear(self) -> None:
         with self._lock:
             self._records: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+            # per-tenant covering-checkpoint watermark: (bundle path, the
+            # processed-batch count the bundle covers)
+            self._checkpoints: Dict[str, Dict[str, Any]] = {}
             self.evicted = 0
             self.minted = 0
 
@@ -155,7 +164,7 @@ class LineageIndex:
                     "trace_id": trace_id,
                     "tenant": tenant,
                     "ordinal": int(ordinal),
-                    # the minting session's epoch
+                    # the minting session's epoch — the fencing token
                     "epoch": epoch_of(trace_id),
                     "ingest_unix": time.time(),
                     "signature": None,
@@ -163,6 +172,7 @@ class LineageIndex:
                     "path": None,
                     "outcome": None,
                     "dump": None,
+                    "alerts": [],
                 }
                 self._records[trace_id] = record
                 self.minted += 1
@@ -188,6 +198,42 @@ class LineageIndex:
                 record = self._records.get(trace_id)
                 if record is not None:
                     record["dump"] = path
+
+    def note_alert(self, ids: List[str], rules: List[str]) -> None:
+        """Attach newly-fired alert rules to the batches whose commit triggered the
+        evaluation."""
+        with self._lock:
+            for trace_id in ids:
+                record = self._records.get(trace_id)
+                if record is not None:
+                    for rule in rules:
+                        if rule not in record["alerts"]:
+                            record["alerts"].append(rule)
+
+    def note_checkpoint(self, tenant: Optional[str], path: str, covered_batches: int) -> None:
+        """Record the newest bundle covering ``tenant``'s first ``covered_batches``
+        processed batches.
+
+        Callers note coverage only on a stream where every arrival was processed in
+        order: the join compares a batch's ARRIVAL ordinal with this processed-batch
+        watermark.
+        """
+        key = tenant if tenant is not None else LOCAL_TENANT
+        with self._lock:
+            self._checkpoints[key] = {
+                "path": str(path),
+                "covered_batches": int(covered_batches),
+                "ts_unix": time.time(),
+            }
+
+    def covering_checkpoint(self, record: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+        """The bundle covering this batch, if one has been written past it."""
+        key = record.get("tenant") or LOCAL_TENANT
+        with self._lock:
+            row = self._checkpoints.get(key)
+            if row is None or record.get("ordinal", 0) >= row["covered_batches"]:
+                return None
+            return dict(row)
 
     def get(self, trace_id: str) -> Optional[Dict[str, Any]]:
         with self._lock:
@@ -286,3 +332,13 @@ def trace_ids(tenant: Optional[str] = None) -> List[str]:
 def note_dump(ids: List[str], path: Optional[str]) -> None:
     if ENABLED:
         _INDEX.note_dump(ids, path)
+
+
+def note_alert(ids: List[str], rules: List[str]) -> None:
+    if ENABLED:
+        _INDEX.note_alert(ids, rules)
+
+
+def note_checkpoint(tenant: Optional[str], path: str, covered_batches: int) -> None:
+    if ENABLED:
+        _INDEX.note_checkpoint(tenant, path, covered_batches)

@@ -44,9 +44,11 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 # can never mint series; never-enabled cost is one branch per observation
 import torchmetrics_tpu_torch.obs.lineage as _lineage
 
-# Tenant labels: the JAX recorder passes every write's labels through the tenant
-# scope (obs/scope.py) so an ambient `scope(tenant=...)` stamps a `tenant` label;
-# that scope comes with the scope slice, and the labels pass through as given here.
+# tenant/session attribution (pure stdlib, no package-internal imports): every
+# recorder write passes its labels through scope.tag so an ambient
+# `scope(tenant=...)` context stamps counters/gauges/histograms/spans/events
+# with a bounded-cardinality `tenant` label; never-entered cost is one branch
+import torchmetrics_tpu_torch.obs.scope as _scope
 
 __all__ = [
     "ENABLED",
@@ -222,6 +224,7 @@ class TraceRecorder:
     # ------------------------------------------------------------------ recording
 
     def add_event(self, name: str, kind: str = "event", **attrs: Any) -> None:
+        attrs = _scope.tag(attrs)
         with self._lock:
             self._append(
                 {
@@ -234,6 +237,7 @@ class TraceRecorder:
             )
 
     def add_span(self, name: str, start: float, duration: float, depth: int, attrs: Dict[str, Any]) -> None:
+        attrs = _scope.tag(attrs)
         with self._lock:
             self._append(
                 {
@@ -266,19 +270,19 @@ class TraceRecorder:
             )
 
     def inc(self, name: str, value: float = 1.0, **labels: Any) -> None:
-        key = (name, _labels_key(labels))
+        key = (name, _labels_key(_scope.tag(labels)))
         with self._lock:
             if self._series_slot(self._counters, key):
                 self._counters[key] = self._counters.get(key, 0.0) + value
 
     def set_gauge(self, name: str, value: float, **labels: Any) -> None:
-        key = (name, _labels_key(labels))
+        key = (name, _labels_key(_scope.tag(labels)))
         with self._lock:
             if self._series_slot(self._gauges, key):
                 self._gauges[key] = value
 
     def observe_duration(self, name: str, seconds: float, **labels: Any) -> None:
-        key = (name, _labels_key(labels))
+        key = (name, _labels_key(_scope.tag(labels)))
         with self._lock:
             if not self._series_slot(self._hists, key):
                 return
@@ -352,6 +356,22 @@ class TraceRecorder:
     def events(self) -> List[Dict[str, Any]]:
         with self._lock:
             return list(self._events)
+
+    def series_counts_by_label(self, label: str, exclude_name_prefix: Optional[str] = None) -> Dict[str, int]:
+        """Distinct recorded series (counters + gauges + histograms) per value of
+        ``label`` — the per-tenant cardinality behind the ``tenant.series`` gauges.
+        ``exclude_name_prefix`` drops series families from the count."""
+        counts: Dict[str, int] = {}
+        with self._lock:
+            for table in (self._counters, self._gauges, self._hists):
+                for name, labels in table:
+                    if exclude_name_prefix is not None and name.startswith(exclude_name_prefix):
+                        continue
+                    for key, value in labels:
+                        if key == label:
+                            counts[str(value)] = counts.get(str(value), 0) + 1
+                            break
+        return counts
 
     def counter_value(self, name: str, **labels: Any) -> float:
         """Value of one counter (0.0 when never incremented). With no labels

@@ -9,11 +9,28 @@ Counterpart of ``torchmetrics_tpu/robust``, as far as the engine slice needs it:
 - :mod:`~torchmetrics_tpu_torch.robust.faults` — deterministic fault-injection
   context managers (NaN bursts; collective and download plans).
 
-The retrying fetcher (``retry``), the guard around eager collectives
-(``degraded``) and session fencing (``fence``) come with the robust plane and the
-migrate slice.
+- :mod:`~torchmetrics_tpu_torch.robust.fence` — lease-stamped sessions with the
+  session epoch as a fencing token: a :class:`~torchmetrics_tpu_torch.robust.fence.Watchdog`
+  that sees a lease lapse fences the epoch, restores the tenant from the latest
+  valid bundle under a fresh epoch, and the zombie's later bundles are refused.
+
+The retrying fetcher (``retry``) and the guard around eager collectives
+(``degraded``) come with the robust plane.
 """
 
+from torchmetrics_tpu_torch.robust.fence import (
+    Watchdog,
+    WatchdogConfig,
+    failover,
+    get_watchdog,
+    holder_id,
+    install_watchdog,
+    lease_expired,
+    mint_lease,
+    renew_lease,
+    scan_bundle_lease,
+    stale_leases,
+)
 from torchmetrics_tpu_torch.robust.policy import (
     ErrorPolicy,
     UpdateGuardError,
@@ -25,7 +42,18 @@ from torchmetrics_tpu_torch.robust.policy import (
 __all__ = [
     "ErrorPolicy",
     "UpdateGuardError",
+    "Watchdog",
+    "WatchdogConfig",
     "error_policy",
+    "failover",
     "get_error_policy",
+    "get_watchdog",
+    "holder_id",
+    "install_watchdog",
+    "lease_expired",
+    "mint_lease",
+    "renew_lease",
+    "scan_bundle_lease",
     "set_error_policy",
+    "stale_leases",
 ]
