@@ -90,7 +90,22 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    slice taken mid-stream and restored in a spawned process finishes bitwise the
    control, the warmup manifest carries estimated flops and bytes, and no group
    degrades on clean data.
-10. ``collection_sync``: two ranks in one gloo world on the one card
+10. ``multilabel_eval``: an MS-COCO 2014 validation pass at its own width, 40,504
+   images x 80 labels (seeded labels, about 2.9 positives an image, and the sigmoid of
+   seeded logits), batch 256: the multi-label image classification protocol's mAP
+   (exact, and at 200 thresholds), AUROC macro and micro (200 thresholds), CP, CR, CF1
+   (macro) and OP, OR, OF1 (micro) precision, recall and F1, accuracy, the confusion
+   matrices, Jaccard and Matthews. Three ways: metric by metric over all 159 batches,
+   held against the same loop on the CPU (integer states equal, floats within
+   FLOAT_ATOL), with a profile's busy share; as one MetricCollection, which must form
+   JAX's 4 compute groups (7 stat-score metrics, 3 confusion-matrix ones, 3 binned
+   curves, the exact mAP), over the 158 full batches with the exact mAP in a
+   MaskedBuffer; and through ``MetricPipeline(fuse=8)``, whose states must be bitwise
+   the grouped eager loop's. No run may launch K1-K5 (the multilabel path is plain sums
+   and einsums, in JAX too). Then ``MulticlassPrecisionRecallCurve(1000,
+   average="macro", thresholds=200)`` on the first 5,000 ImageNet rows, card against
+   CPU: the mean precision and the thresholds bitwise, the mean recall within 1e-6.
+11. ``collection_sync``: two ranks in one gloo world on the one card
    (``torch.multiprocessing`` spawn, a timeout on the rendezvous and on each
    collective, one on the whole world). Each rank makes the full seeded data, updates
    a grouped and an ungrouped collection with every other batch on ``cuda:0`` and
@@ -101,17 +116,17 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    (``sync_state`` of the leaders' states). Both ranks' synced values and states must equal the single-process
    collection's over all the data (integers exactly, floats within the
    classification tolerance); a rank that fails or hangs fails the run.
-11. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+12. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
-12. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+13. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-13. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+14. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
@@ -158,6 +173,11 @@ included).
     python3 chip_smoke.py --mux-eval
 
 builds the kernels and prints only the ``mux_eval`` phase's line (its checks included).
+
+    python3 chip_smoke.py --multilabel-eval
+
+builds the kernels and prints only the ``multilabel_eval`` phase's line (its checks
+included).
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
 its operations over the float32 rate of the data sheet (an FMA counting two), both
@@ -2168,6 +2188,205 @@ def mux_eval_phase() -> dict:
             "launches": launches}
 
 
+# ----------------------------------------------------------------- multilabel
+
+# MS-COCO 2014 validation at its own width: 40,504 images x 80 labels, about 2.9
+# positive labels an image, batch 256 (158 full steps and one of 56)
+MULTILABEL_LABELS = 80
+MULTILABEL_IMAGES = 40_504
+MULTILABEL_DENSITY = 2.9
+MULTILABEL_BATCH = 256
+MULTILABEL_THRESHOLDS = 200
+# the fused run's capacity for map_exact's scores: the 158 full batches, 40,448 images
+MULTILABEL_BUFFER = 40_960
+# the compute groups JAX's MetricCollection forms from the same 14 metrics
+MULTILABEL_GROUP_SIZES = [1, 3, 3, 7]
+MULTILABEL_PROFILE_STEPS = 16
+# the macro PR curve at ImageNet width: the first rows of imagenet_data, in batches
+MACRO_CURVE_CLASSES = 1000
+MACRO_CURVE_ROWS = 5000
+MACRO_CURVE_BATCH = 500
+MACRO_RECALL_ATOL = 1e-6
+
+
+def multilabel_metrics(device: str, buffer_capacity: int | None = None) -> dict:
+    """mAP (exact and at 200 thresholds), AUROC macro and micro, the per-class (CP, CR,
+    CF1) and overall (OP, OR, OF1) precision, recall and F1 of the multi-label image
+    classification protocol, accuracy, the confusion matrices, Jaccard and Matthews.
+    With ``buffer_capacity`` the exact mAP keeps its scores in a MaskedBuffer."""
+    from torchmetrics_tpu_torch import classification as tc
+
+    labels, t = MULTILABEL_LABELS, MULTILABEL_THRESHOLDS
+    kw = {"validate_args": False, "device": device}
+    return {
+        "map_exact": tc.MultilabelAveragePrecision(labels, "macro", buffer_capacity=buffer_capacity, **kw),
+        "map_t200": tc.MultilabelAveragePrecision(labels, "macro", thresholds=t, **kw),
+        "auroc_macro_t200": tc.MultilabelAUROC(labels, "macro", thresholds=t, **kw),
+        "auroc_micro_t200": tc.MultilabelAUROC(labels, "micro", thresholds=t, **kw),
+        "cp": tc.MultilabelPrecision(labels, average="macro", **kw),
+        "cr": tc.MultilabelRecall(labels, average="macro", **kw),
+        "cf1": tc.MultilabelF1Score(labels, average="macro", **kw),
+        "op": tc.MultilabelPrecision(labels, average="micro", **kw),
+        "or": tc.MultilabelRecall(labels, average="micro", **kw),
+        "of1": tc.MultilabelF1Score(labels, average="micro", **kw),
+        "accuracy": tc.MultilabelAccuracy(labels, **kw),
+        "confusion_matrix": tc.MultilabelConfusionMatrix(labels, **kw),
+        "jaccard": tc.MultilabelJaccardIndex(labels, **kw),
+        "matthews": tc.MultilabelMatthewsCorrCoef(labels, **kw),
+    }
+
+
+def multilabel_data(n: int = MULTILABEL_IMAGES, labels: int = MULTILABEL_LABELS, seed: int = 3,
+                    device: str = "cuda"):
+    """Seeded COCO-like labels and scores: per-label prevalences drawn long-tailed
+    (u**2) and scaled to MULTILABEL_DENSITY positives an image on average, logits with
+    a signal on the positives, and their sigmoid taken once, on ``device``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(labels, generator=g, device=device)
+    prevalence = u * u / (u * u).mean() * (MULTILABEL_DENSITY / labels)
+    target = (torch.rand(n, labels, generator=g, device=device) < prevalence).to(torch.int32)
+    logits = torch.randn(n, labels, generator=g, device=device) + 3.0 * target - 2.0
+    return torch.sigmoid(logits), target
+
+
+def state_leaves(tree) -> list:
+    """The tensors of a state tree (dicts in key order, lists and tuples in order)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in state_leaves(v)]
+    return [tree]
+
+
+def macro_curve_check() -> dict:
+    """``MulticlassPrecisionRecallCurve(1000, average="macro", thresholds=200)`` on the
+    first MACRO_CURVE_ROWS rows of ``imagenet_data``, card against CPU: mean precision and
+    thresholds bitwise, mean recall within MACRO_RECALL_ATOL."""
+    import torch
+
+    from torchmetrics_tpu_torch import classification as tc
+
+    preds, target = imagenet_data(c=MACRO_CURVE_CLASSES)
+    preds, target = preds[:MACRO_CURVE_ROWS], target[:MACRO_CURVE_ROWS]
+    out, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        m = tc.MulticlassPrecisionRecallCurve(MACRO_CURVE_CLASSES, average="macro", thresholds=200,
+                                             validate_args=False, device=device)
+        p, t = preds.to(m.device), target.to(m.device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for start in range(0, MACRO_CURVE_ROWS, MACRO_CURVE_BATCH):
+            m.update(p[start:start + MACRO_CURVE_BATCH], t[start:start + MACRO_CURVE_BATCH])
+        out[device] = m.compute()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[device] = time.perf_counter() - t0
+    (cp, cr, ct), (hp, hr, ht) = to_cpu(out["cuda"]), out["cpu"]
+    for name, a, b in (("mean_precision", cp, hp), ("thresholds", ct, ht)):
+        if not bitwise_equal(a, b):
+            raise AssertionError(f"multilabel_eval macro curve: {name} differs between the card and the CPU")
+    recall_gap = float((cr - hr).abs().max())
+    if not recall_gap <= MACRO_RECALL_ATOL or not bool(torch.isfinite(cr).all()):
+        raise AssertionError(f"multilabel_eval macro curve: mean recall gap {recall_gap} over {MACRO_RECALL_ATOL}")
+    return {"classes": MACRO_CURVE_CLASSES, "thresholds": 200, "rows": MACRO_CURVE_ROWS, "points": int(cp.numel()),
+            "mean_recall_gap": recall_gap, "card_s": seconds["cuda"], "cpu_s": seconds["cpu"],
+            "bitwise": ["mean_precision", "thresholds"]}
+
+
+def multilabel_eval_phase() -> dict:
+    """An MS-COCO-sized multi-label evaluation, three ways, then the macro PR curve.
+
+    (1) Eager, metric by metric, over all 159 batches, then the same loop on the CPU
+    (integer states equal, floats within FLOAT_ATOL) and a profile of warm steps;
+    (2) grouped: one MetricCollection of the same metrics, which must form JAX's 4
+    compute groups, over the 158 full batches with the exact mAP in a MaskedBuffer;
+    (3) fused: MetricPipeline(fuse=8) over that collection, whose states must be
+    bitwise the grouped eager loop's. No run may launch K1-K5: the multilabel path is
+    plain sums and einsums in JAX and in the port. Profiles come after every timing."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.ops import kernels
+
+    preds, target = multilabel_data()
+    batch = MULTILABEL_BATCH
+    steps = -(-preds.shape[0] // batch)
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+
+    def count(run_launches: dict, where: str) -> None:
+        for name, n in run_launches.items():
+            launches[name] += n
+        if any(run_launches.values()):
+            raise AssertionError(f"multilabel_eval {where}: a kernel launched on the multilabel path:"
+                                 f" {run_launches}")
+
+    # (1) eager, metric by metric, all the data; the CPU runs the same loop
+    kernels.reset_launch_counts()
+    card_values, card_states, seconds = run_loop(multilabel_metrics("cuda"), preds, target, batch)
+    count(dict(kernels.LAUNCHES), "eager")
+    cpu_values, cpu_states, cpu_seconds = run_loop(multilabel_metrics("cpu"), preds.cpu(), target.cpu(), batch)
+    state_gap = max(compare(card_states[m], cpu_states[m], f"state.{m}") for m in card_states)
+    value_gap = compare(card_values, cpu_values, "value")
+    for name, value in card_values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"multilabel_eval: {name} is not finite")
+    eager = {"wall_s": seconds, "us_per_step": seconds / steps * 1e6, "cpu_wall_s": cpu_seconds,
+             "cpu_compared_steps": steps, "max_state_float_gap": state_gap, "max_value_float_gap": value_gap}
+
+    # (2) grouped and (3) fused over the full batches, the exact mAP buffered
+    def buffered(device: str) -> dict:
+        return multilabel_metrics(device, buffer_capacity=MULTILABEL_BUFFER)
+
+    full = batches_of(preds, target, batch)[: preds.shape[0] // batch]
+    groups = MetricCollection(buffered("cuda")).compute_groups
+    sizes = sorted(len(g) for g in groups.values())
+    if sizes != MULTILABEL_GROUP_SIZES:
+        raise AssertionError(f"multilabel_eval: the collection formed groups {list(groups.values())}, not"
+                             f" sizes {MULTILABEL_GROUP_SIZES}")
+    runs, us = {}, {"eager": [], "fuse_8": []}
+    for variant in ("eager", "fuse_8", "fuse_8", "eager"):
+        run = pipeline_run(buffered, "cuda", full, variant)
+        count(run["launches"], variant)
+        us[variant].append(run["seconds"] / len(full) * 1e6)
+        run.pop("pipe", None)
+        run.pop("col")
+        runs.setdefault(variant, run)
+        release_graphs()
+    grouped, fused = runs["eager"], runs["fuse_8"]
+    for m in grouped["states"]:
+        if not bitwise_equal(state_leaves(fused["states"][m]), state_leaves(grouped["states"][m])):
+            raise AssertionError(f"multilabel_eval: the fused state of {m} is not bitwise the grouped eager loop's")
+    chunks = -(-len(full) // PIPELINE_FUSE)
+    if fused["replays"] != chunks or fused["misses_in_loop"] or fused["report"]["chunks_replayed"]:
+        raise AssertionError(f"multilabel_eval fused: {fused['replays']} replays, {fused['misses_in_loop']}"
+                             f" captures in the loop for {chunks} chunks")
+    fused_value_gap = compare(to_cpu(fused["values"]), to_cpu(grouped["values"]), "fused.value")
+
+    # profiles after every timing: a process that has run the profiler is slower afterwards
+    eager["profile"] = profile_loop(multilabel_metrics("cuda"), preds, target, batch, MULTILABEL_PROFILE_STEPS)
+    profiled = full[: 2 * PIPELINE_FUSE]
+    profiles = {v: profile_pipeline(buffered, profiled, v) for v in ("eager", "fuse_8")}
+    macro = macro_curve_check()
+
+    summary = {}
+    for name, value in card_values.items():
+        summary[name] = float(value) if value.numel() == 1 else {"shape": list(value.shape), "sum": int(value.sum())}
+    return {
+        "phase": "multilabel_eval", "images": int(preds.shape[0]), "labels": MULTILABEL_LABELS, "batch": batch,
+        "steps": steps, "positives_per_image": float(target.sum()) / preds.shape[0], "eager": eager,
+        "grouped": {"steps": len(full), "groups": [list(g) for g in groups.values()], "us_per_step": us["eager"],
+                    "profile": profiles["eager"]},
+        "fused": {"fuse": PIPELINE_FUSE, "steps": len(full), "us_per_step": us["fuse_8"],
+                  "replays_per_batch": fused["replays"] / len(full), "capture_s": fused["capture_s"],
+                  "captured_variants": fused["variants"], "padded_steps": fused["report"]["padded_steps"],
+                  "bitwise_states": True, "max_value_float_gap": fused_value_gap, "profile": profiles["fuse_8"]},
+        "macro_curve": macro, "values": summary, "launches": launches,
+    }
+
+
 def free_port() -> int:
     import socket
 
@@ -2737,6 +2956,11 @@ def main() -> int:
         emit({**session_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
               "phase_wall_s": time.perf_counter() - t0})
         return 0
+    if "--multilabel-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**multilabel_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
     if "--mux-eval" in sys.argv[1:]:
         t0 = time.perf_counter()
         emit({**mux_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -2806,6 +3030,10 @@ def main() -> int:
     mux = mux_eval_phase()
     phases.append(mux)
     emit({**mux, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    multilabel = multilabel_eval_phase()
+    phases.append(multilabel)
+    emit({**multilabel, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     sync = collection_sync_phase(reference)
     phases.append(sync)

@@ -11,6 +11,7 @@ suite's JAX conftest:
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -1581,3 +1582,127 @@ def test_a_captured_variants_count_equals_the_cpu_routes(card):
     assert (cpu.backend, gpu.backend) == ("cpu", "cuda")
     assert cpu.flops == gpu.flops and cpu.bytes_accessed == gpu.bytes_accessed
     assert gpu.compile_seconds > 0 and gpu.argument_bytes == cpu.argument_bytes
+
+
+# ---------------------------------------------------------------- multilabel
+
+
+def _multilabel_set(device, buffer_capacity=None) -> dict:
+    """``chip_smoke.py``'s multilabel_eval metrics (80 labels), the exact mAP buffered."""
+    labels, kw = 80, {"validate_args": False, "device": device}
+    return {
+        "map_exact": tc.MultilabelAveragePrecision(labels, "macro", buffer_capacity=buffer_capacity, **kw),
+        "map_t200": tc.MultilabelAveragePrecision(labels, "macro", thresholds=200, **kw),
+        "auroc_macro_t200": tc.MultilabelAUROC(labels, "macro", thresholds=200, **kw),
+        "auroc_micro_t200": tc.MultilabelAUROC(labels, "micro", thresholds=200, **kw),
+        "cp": tc.MultilabelPrecision(labels, average="macro", **kw),
+        "cr": tc.MultilabelRecall(labels, average="macro", **kw),
+        "cf1": tc.MultilabelF1Score(labels, average="macro", **kw),
+        "op": tc.MultilabelPrecision(labels, average="micro", **kw),
+        "or": tc.MultilabelRecall(labels, average="micro", **kw),
+        "of1": tc.MultilabelF1Score(labels, average="micro", **kw),
+        "accuracy": tc.MultilabelAccuracy(labels, **kw),
+        "confusion_matrix": tc.MultilabelConfusionMatrix(labels, **kw),
+        "jaccard": tc.MultilabelJaccardIndex(labels, **kw),
+        "matthews": tc.MultilabelMatthewsCorrCoef(labels, **kw),
+    }
+
+
+def _multilabel_batches(steps: int, n: int = 256):
+    g = torch.Generator().manual_seed(23)
+    prevalence = torch.rand(80, generator=g) ** 2 * 3 * 2.9 / 80
+    out = []
+    for _ in range(steps):
+        target = (torch.rand(n, 80, generator=g) < prevalence).to(torch.int32)
+        out.append((torch.sigmoid(torch.randn(n, 80, generator=g) + 3.0 * target - 2.0), target))
+    return out
+
+
+def test_a_multilabel_collection_through_fused_chunks_is_bitwise_its_eager_loop(card):
+    """The multilabel_eval collection (4 compute groups) through MetricPipeline(fuse=8):
+    a chunk of 8 and a padded chunk of 2, every state and value bitwise the eager
+    collection loop's, and no K1-K5 launch on either side."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    batches = [(p.to(card), t.to(card)) for p, t in _multilabel_batches(10)]
+    eager, driven = MetricCollection(_multilabel_set(card, 2560)), MetricCollection(_multilabel_set(card, 2560))
+    assert sorted(len(g) for g in driven.compute_groups.values()) == [1, 3, 3, 7]
+    kernels.reset_launch_counts()
+    for p, t in batches:
+        eager.update(p, t)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=8))
+    report = pipe.run(batches)
+    assert sum(info["replays"] for info in pipe.cache_info()) == 2 and report.chunks_replayed == 0
+    assert not any(kernels.LAUNCHES.values()), dict(kernels.LAUNCHES)
+    for name in eager.keys(keep_base=True):
+        for key, want in eager[name].state_dict(persistent_only=False).items():
+            got = driven[name].state_dict(persistent_only=False)[key]
+            if isinstance(want, dict):  # a MaskedBuffer: data and count
+                _assert_bitwise([got["data"], got["count"]], [want["data"], want["count"]], f"{name}.{key}")
+            else:
+                _assert_bitwise(got, want, f"{name}.{key}")
+    got, want = driven.compute(), eager.compute()
+    for name in want:
+        _assert_bitwise(got[name], want[name], name)
+
+
+def test_a_buffered_multilabel_map_replays_its_capture(card):
+    """The exact mAP's [capacity, 80] buffers through fused chunks: the write offset
+    rides into the graph, the replays write what the eager appends write, and an
+    overflow raises before the replay."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    batches = [(p.to(card), t.to(card)) for p, t in _multilabel_batches(6, n=100)]
+    eager = tc.MultilabelAveragePrecision(80, buffer_capacity=600, validate_args=False)
+    driven = tc.MultilabelAveragePrecision(80, buffer_capacity=600, validate_args=False)
+    for p, t in batches:
+        eager.update(p, t)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=4))
+    pipe.run(batches)  # a chunk of 4 and a padded chunk of 2
+    assert sum(info["replays"] for info in pipe.cache_info()) == 2
+    assert driven.preds.count == eager.preds.count == 600
+    for key in ("preds", "target", "valid"):
+        assert torch.equal(getattr(driven, key).data, getattr(eager, key).data), key
+    _assert_bitwise(driven.compute(), eager.compute(), "map")
+
+    small = tc.MultilabelAveragePrecision(80, buffer_capacity=450, validate_args=False)
+    pipe = MetricPipeline(small, PipelineConfig(fuse=2))
+    pipe.run(batches[:4])
+    with pytest.raises(ValueError, match="overflowed"):
+        pipe.run(batches[4:])
+    assert small.preds.count == 400
+
+
+def test_multilabel_value_checks_skip_in_a_capture_and_run_eagerly(card, monkeypatch):
+    """With validate_args, a jitted multilabel update checks the target's values in its
+    warm run, not inside the capture and not at a replay; an eager one checks every
+    update and raises on a value outside {0, 1}."""
+    # the modules, not the functions of the same names that the package exports
+    stat_scores = importlib.import_module("torchmetrics_tpu_torch.functional.classification.stat_scores")
+    confusion_matrix = importlib.import_module("torchmetrics_tpu_torch.functional.classification.confusion_matrix")
+    seen = []
+
+    def counting(x):
+        assert not torch.cuda.is_current_stream_capturing()
+        seen.append(x.shape)
+        return set(torch.unique(x).tolist())
+
+    monkeypatch.setattr(stat_scores, "_unique_values", counting)
+    monkeypatch.setattr(confusion_matrix, "_unique_values", counting)
+    batches = [(p.to(card), t.to(card)) for p, t in _multilabel_batches(3, n=64)]
+    for make in (lambda **k: tc.MultilabelF1Score(80, **k), lambda **k: tc.MultilabelConfusionMatrix(80, **k)):
+        eager, jitted = make(), make(jit_update=True)
+        seen.clear()
+        for p, t in batches:
+            jitted.update(p, t)
+        assert len(seen) == 1  # the warm run's check
+        info = jitted._jitted_update.cache_info()
+        assert (info["misses"], info["replays"]) == (1, 3)
+        seen.clear()
+        for p, t in batches:
+            eager.update(p, t)
+        assert len(seen) == 3
+        for key, want in eager.state_dict(persistent_only=False).items():
+            assert torch.equal(jitted.state_dict(persistent_only=False)[key], want), key
+        with pytest.raises(RuntimeError, match="Detected the following values in `target`"):
+            eager.update(batches[0][0], batches[0][1] * 2)

@@ -33,11 +33,10 @@ def test_multiclass_roc_macro(thresholds):
 
 
 def test_macro_precision_recall_curve_is_not_ported_yet():
+    # ported: the binned macro curve equals JAX's (tests/test_torch_interp.py holds the rest)
     preds, target = _multiclass_inputs(18, None, multidim=False)
-    with pytest.raises(NotImplementedError, match="Macro-averaged"):
-        tf.multiclass_precision_recall_curve(
-            torch.from_numpy(preds), torch.from_numpy(target), num_classes=C, thresholds=5, average="macro"
-        )
+    both(jf.multiclass_precision_recall_curve, tf.multiclass_precision_recall_curve, preds, target,
+         num_classes=C, thresholds=5, average="macro")
 
 
 @pytest.mark.parametrize("thresholds", [None, 50])

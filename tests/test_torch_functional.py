@@ -178,5 +178,11 @@ def test_validation_errors_match():
         tf.binary_accuracy(torch.from_numpy(preds), torch.from_numpy(target))
     with pytest.raises(ValueError, match="num_classes"):
         tf.multiclass_accuracy(torch.zeros(4, 3), torch.zeros(4, dtype=torch.int32), num_classes=1)
-    with pytest.raises(NotImplementedError, match="multilabel"):
-        tf.accuracy(torch.zeros(4, 3), torch.zeros(4, 3, dtype=torch.int32), task="multilabel", num_labels=3)
+    # multilabel validates as JAX does: a target value outside {0, 1} raises JAX's message
+    ml_target = np.zeros((4, 3), dtype=np.int32)
+    ml_target[0, 0] = 2
+    with pytest.raises(RuntimeError) as want:
+        jf.accuracy(jnp.zeros((4, 3)), jnp.asarray(ml_target), task="multilabel", num_labels=3)
+    with pytest.raises(RuntimeError, match="Detected the following values in `target`") as got:
+        tf.accuracy(torch.zeros(4, 3), torch.from_numpy(ml_target), task="multilabel", num_labels=3)
+    assert str(got.value) == str(want.value)

@@ -230,9 +230,10 @@ def test_task_wrappers_dispatch_and_refuse_multilabel():
     assert type(tc.Accuracy(task="multiclass", num_classes=3, device="cpu")) is tc.MulticlassAccuracy
     assert type(tc.F1Score(task="binary", device="cpu")) is tc.BinaryF1Score
     assert type(tc.AUROC(task="multiclass", num_classes=3, device="cpu")) is tc.MulticlassAUROC
+    # multilabel is ported: each wrapper builds its Multilabel* class
     for cls in (tc.Accuracy, tc.F1Score, tc.ConfusionMatrix, tc.AUROC, tc.StatScores, tc.PrecisionRecallCurve):
-        with pytest.raises(NotImplementedError, match="multilabel"):
-            cls(task="multilabel", num_labels=3, device="cpu")
+        m = cls(task="multilabel", num_labels=3, device="cpu")
+        assert type(m) is getattr(tc, "Multilabel" + cls.__name__) and m.num_labels == 3
 
 
 def test_lifecycle_errors():

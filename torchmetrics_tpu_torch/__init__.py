@@ -10,10 +10,11 @@ It holds the metric runtime, ``MetricCollection`` with static compute groups, an
 cross-process sync on ``torch.distributed`` (``parallel``); the capture cache of CUDA
 graphs (``core/jit.py``), the error policies and fault injection (``robust``), the
 telemetry recorder and batch lineage (``obs``) and the streaming pipeline
-(``engine``, imported on its own); the binary and multiclass classification metrics: stat
-scores, accuracy, precision and recall, F-beta/F1, confusion matrix, Jaccard index,
-Matthews correlation, Cohen's kappa, calibration error, precision-recall curve,
-average precision, ROC (functional) and AUROC; and the image-restoration metrics:
+(``engine``, imported on its own); the binary, multiclass and multilabel classification
+metrics: stat scores, accuracy, precision and recall, F-beta/F1, confusion matrix,
+Jaccard index, Matthews correlation, precision-recall curve, average precision, ROC
+(functional) and AUROC, and Cohen's kappa and calibration error (binary and
+multiclass); and the image-restoration metrics:
 SSIM, MS-SSIM, PSNR, PSNR-B, UQI, sliding-window RMSE and total variation.
 """
 

@@ -1,11 +1,17 @@
-"""Classification metric classes of the port (binary and multiclass)."""
+"""Classification metric classes of the port (binary, multiclass and multilabel)."""
 
-from torchmetrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy
-from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC
+from torchmetrics_tpu_torch.classification.accuracy import (
+    Accuracy,
+    BinaryAccuracy,
+    MulticlassAccuracy,
+    MultilabelAccuracy,
+)
+from torchmetrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
 from torchmetrics_tpu_torch.classification.average_precision import (
     AveragePrecision,
     BinaryAveragePrecision,
     MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
 )
 from torchmetrics_tpu_torch.classification.calibration_error import (
     BinaryCalibrationError,
@@ -17,6 +23,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
     MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
 )
 from torchmetrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
@@ -25,27 +32,43 @@ from torchmetrics_tpu_torch.classification.f_beta import (
     FBetaScore,
     MulticlassF1Score,
     MulticlassFBetaScore,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
 )
-from torchmetrics_tpu_torch.classification.jaccard import BinaryJaccardIndex, JaccardIndex, MulticlassJaccardIndex
+from torchmetrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
 from torchmetrics_tpu_torch.classification.matthews_corrcoef import (
     BinaryMatthewsCorrCoef,
     MatthewsCorrCoef,
     MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
 )
 from torchmetrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
     BinaryRecall,
     MulticlassPrecision,
     MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
     Precision,
     Recall,
 )
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
 )
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores, StatScores
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+    StatScores,
+)
 
 __all__ = [
     "AUROC",
@@ -86,6 +109,18 @@ __all__ = [
     "MulticlassPrecisionRecallCurve",
     "MulticlassRecall",
     "MulticlassStatScores",
+    "MultilabelAUROC",
+    "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
+    "MultilabelF1Score",
+    "MultilabelFBetaScore",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
+    "MultilabelPrecision",
+    "MultilabelPrecisionRecallCurve",
+    "MultilabelRecall",
+    "MultilabelStatScores",
     "Precision",
     "PrecisionRecallCurve",
     "Recall",

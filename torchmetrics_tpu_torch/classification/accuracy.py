@@ -10,9 +10,12 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+)
 from torchmetrics_tpu_torch.functional.classification._stat_reduce import _accuracy_reduce
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -50,6 +53,23 @@ class MulticlassAccuracy(MulticlassStatScores):
         )
 
 
+class MultilabelAccuracy(MultilabelStatScores):
+    """Multilabel accuracy: per label ``(tp + tn) / (tp + tn + fp + fn)``."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def compute(self) -> Tensor:
+        """Accuracy from per-label counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _accuracy_reduce(
+            tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average, multilabel=True
+        )
+
+
 class Accuracy(_ClassificationTaskWrapper):
     """Task-dispatch wrapper: ``Accuracy(task="multiclass", num_classes=3)``."""
 
@@ -80,4 +100,8 @@ class Accuracy(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassAccuracy(num_classes, top_k, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelAccuracy(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Not handled value: {task}")

@@ -13,15 +13,16 @@ from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrappe
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
     _curve_state,
 )
 from torchmetrics_tpu_torch.functional.classification.auroc import (
     _binary_auroc_arg_validation,
     _binary_auroc_compute,
     _multiclass_auroc_compute,
+    _multilabel_auroc_compute,
     _validate_average_arg,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -88,6 +89,39 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
         return _multiclass_auroc_compute(_curve_state(self), self.num_classes, self.thresholds, self.average_auroc)
 
 
+class MultilabelAUROC(MultilabelPrecisionRecallCurve):
+    """Multilabel AUROC (micro: one curve over every (sample, label) pair)."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        num_labels: int,
+        average: Optional[str] = "macro",
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _validate_average_arg(average, allowed=("micro", "macro", "weighted", "none", None))
+        self.average_auroc = average
+        self.validate_args = validate_args
+
+    def compute(self) -> Tensor:
+        """AUROC from the accumulated state."""
+        return _multilabel_auroc_compute(
+            _curve_state(self), self.num_labels, self.thresholds, self.average_auroc, self.ignore_index
+        )
+
+
 class AUROC(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for AUROC."""
 
@@ -111,4 +145,8 @@ class AUROC(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassAUROC(num_classes, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelAUROC(num_labels, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -13,14 +13,15 @@ from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrappe
 from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
     _curve_state,
 )
 from torchmetrics_tpu_torch.functional.classification.auroc import _validate_average_arg
 from torchmetrics_tpu_torch.functional.classification.average_precision import (
     _binary_average_precision_compute,
     _multiclass_average_precision_compute,
+    _multilabel_average_precision_compute,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -75,6 +76,39 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
         )
 
 
+class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
+    """Multilabel average precision (micro: one curve over every (sample, label) pair)."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        num_labels: int,
+        average: Optional[str] = "macro",
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels, thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs
+        )
+        if validate_args:
+            _validate_average_arg(average, allowed=("micro", "macro", "weighted", "none", None))
+        self.average_ap = average
+        self.validate_args = validate_args
+
+    def compute(self) -> Tensor:
+        """AP from the accumulated state."""
+        return _multilabel_average_precision_compute(
+            _curve_state(self), self.num_labels, self.thresholds, self.average_ap, self.ignore_index
+        )
+
+
 class AveragePrecision(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for average precision."""
 
@@ -97,4 +131,8 @@ class AveragePrecision(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassAveragePrecision(num_classes, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelAveragePrecision(num_labels, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -23,8 +23,12 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     _multiclass_confusion_matrix_format,
     _multiclass_confusion_matrix_tensor_validation,
     _multiclass_confusion_matrix_update,
+    _multilabel_confusion_matrix_arg_validation,
+    _multilabel_confusion_matrix_compute,
+    _multilabel_confusion_matrix_format,
+    _multilabel_confusion_matrix_tensor_validation,
+    _multilabel_confusion_matrix_update,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -108,6 +112,49 @@ class MulticlassConfusionMatrix(Metric):
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
 
 
+class MultilabelConfusionMatrix(Metric):
+    """Multilabel [L, 2, 2] per-label confusion matrices."""
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        ignore_index: Optional[int] = None,
+        normalize: Optional[str] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_confusion_matrix_arg_validation(num_labels, threshold, ignore_index, normalize)
+        self.num_labels = num_labels
+        self.threshold = threshold
+        self.ignore_index = ignore_index
+        self.normalize = normalize
+        self.validate_args = validate_args
+        self.add_state("confmat", torch.zeros((num_labels, 2, 2), dtype=torch.int32), dist_reduce_fx="sum")
+
+    def _compute_group_params(self):
+        return (self.num_labels, self.threshold, self.ignore_index)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate the batch's per-label confusion matrices."""
+        if self.validate_args:
+            _multilabel_confusion_matrix_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        preds, target, valid = _multilabel_confusion_matrix_format(
+            preds, target, self.num_labels, self.threshold, self.ignore_index
+        )
+        self.confmat = self.confmat + _multilabel_confusion_matrix_update(preds, target, valid, self.num_labels)
+
+    def compute(self) -> Tensor:
+        """The (optionally normalized) confusion matrices."""
+        return _multilabel_confusion_matrix_compute(self.confmat, self.normalize)
+
+
 class ConfusionMatrix(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for the confusion matrix."""
 
@@ -130,4 +177,8 @@ class ConfusionMatrix(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassConfusionMatrix(num_classes, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelConfusionMatrix(num_labels, threshold, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -10,10 +10,13 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+)
 from torchmetrics_tpu_torch.functional.classification._stat_reduce import _fbeta_reduce
 from torchmetrics_tpu_torch.functional.classification.f_beta import _fbeta_arg_check
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -105,6 +108,51 @@ class MulticlassFBetaScore(MulticlassStatScores):
         )
 
 
+class MultilabelFBetaScore(MultilabelStatScores):
+    """Multilabel F-beta."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        beta: float,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            num_labels=num_labels,
+            threshold=threshold,
+            average=average,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=False,
+            **kwargs,
+        )
+        if validate_args:
+            _fbeta_arg_check(beta)
+        self.validate_args = validate_args
+        self.beta = beta
+        self.zero_division = zero_division
+
+    def compute(self) -> Tensor:
+        """F-beta from per-label counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _fbeta_reduce(
+            tp, fp, tn, fn, self.beta, average=self.average, multidim_average=self.multidim_average,
+            multilabel=True, zero_division=self.zero_division,
+        )
+
+
 class BinaryF1Score(BinaryFBetaScore):
     """Binary F1."""
 
@@ -155,6 +203,33 @@ class MulticlassF1Score(MulticlassFBetaScore):
         )
 
 
+class MultilabelF1Score(MultilabelFBetaScore):
+    """Multilabel F1."""
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(
+            beta=1.0,
+            num_labels=num_labels,
+            threshold=threshold,
+            average=average,
+            multidim_average=multidim_average,
+            ignore_index=ignore_index,
+            validate_args=validate_args,
+            zero_division=zero_division,
+            **kwargs,
+        )
+
+
 class FBetaScore(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for F-beta."""
 
@@ -188,7 +263,11 @@ class FBetaScore(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassFBetaScore(beta, num_classes, top_k, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelFBetaScore(beta, num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")
 
 
 class F1Score(_ClassificationTaskWrapper):
@@ -223,4 +302,8 @@ class F1Score(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassF1Score(num_classes, top_k, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelF1Score(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -11,12 +11,15 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
 from torchmetrics_tpu_torch.functional.classification.jaccard import (
     _jaccard_index_arg_validation,
     _jaccard_index_reduce,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -78,6 +81,38 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
         )
 
 
+class MultilabelJaccardIndex(MultilabelConfusionMatrix):
+    """Multilabel Jaccard index."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        zero_division: float = 0.0,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_labels, threshold, ignore_index, normalize=None, validate_args=validate_args, **kwargs)
+        if validate_args:
+            _jaccard_index_arg_validation(average)
+        self.average = average
+        self.zero_division = zero_division
+
+    def compute(self) -> Tensor:
+        """The Jaccard index from the per-label confusion matrices."""
+        return _jaccard_index_reduce(
+            self.confmat, average=self.average, ignore_index=self.ignore_index, zero_division=self.zero_division
+        )
+
+
 class JaccardIndex(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for the Jaccard index."""
 
@@ -101,4 +136,8 @@ class JaccardIndex(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassJaccardIndex(num_classes, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelJaccardIndex(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

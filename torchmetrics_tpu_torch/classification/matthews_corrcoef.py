@@ -11,9 +11,12 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
 from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import _matthews_corrcoef_reduce
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -65,6 +68,30 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
         return _matthews_corrcoef_reduce(self.confmat)
 
 
+class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
+    """Multilabel MCC over the summed per-label confusion matrices."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = -1.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_labels, threshold, ignore_index, normalize=None, validate_args=validate_args, **kwargs)
+
+    def compute(self) -> Tensor:
+        """MCC from the per-label confusion matrices."""
+        return _matthews_corrcoef_reduce(self.confmat)
+
+
 class MatthewsCorrCoef(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for MCC."""
 
@@ -86,4 +113,8 @@ class MatthewsCorrCoef(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassMatthewsCorrCoef(num_classes, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelMatthewsCorrCoef(num_labels, threshold, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

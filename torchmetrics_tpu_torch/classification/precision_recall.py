@@ -11,9 +11,12 @@ from typing import Any, Optional
 import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
-from torchmetrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+)
 from torchmetrics_tpu_torch.functional.classification._stat_reduce import _precision_recall_reduce
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -63,6 +66,28 @@ class _MulticlassPrecisionRecall(MulticlassStatScores):
         )
 
 
+class _MultilabelPrecisionRecall(MultilabelStatScores):
+    _stat: str
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def __init__(self, *args: Any, zero_division: float = 0.0, **kwargs: Any) -> None:
+        super().__init__(*args, **kwargs)
+        self.zero_division = zero_division
+
+    def compute(self) -> Tensor:
+        """The statistic from the per-label counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _precision_recall_reduce(
+            self._stat, tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average,
+            multilabel=True, zero_division=self.zero_division,
+        )
+
+
 class BinaryPrecision(_BinaryPrecisionRecall):
     """Binary precision: ``tp / (tp + fp)``."""
 
@@ -71,6 +96,12 @@ class BinaryPrecision(_BinaryPrecisionRecall):
 
 class MulticlassPrecision(_MulticlassPrecisionRecall):
     """Multiclass precision."""
+
+    _stat = "precision"
+
+
+class MultilabelPrecision(_MultilabelPrecisionRecall):
+    """Multilabel precision."""
 
     _stat = "precision"
 
@@ -87,12 +118,20 @@ class MulticlassRecall(_MulticlassPrecisionRecall):
     _stat = "recall"
 
 
+class MultilabelRecall(_MultilabelPrecisionRecall):
+    """Multilabel recall."""
+
+    _stat = "recall"
+
+
 def _task_metric(
     binary_cls: type,
     multiclass_cls: type,
+    multilabel_cls: type,
     task: str,
     threshold: float,
     num_classes: Optional[int],
+    num_labels: Optional[int],
     average: Optional[str],
     multidim_average: str,
     top_k: Optional[int],
@@ -116,7 +155,11 @@ def _task_metric(
         if not isinstance(top_k, int):
             raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
         return multiclass_cls(num_classes, top_k, average, **kwargs)
-    raise _multilabel_not_ported(binary_cls._stat.capitalize())
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_cls(num_labels, threshold, average, **kwargs)
+    raise ValueError(f"Task {task} not supported!")
 
 
 class Precision(_ClassificationTaskWrapper):
@@ -137,8 +180,8 @@ class Precision(_ClassificationTaskWrapper):
         **kwargs: Any,
     ):
         return _task_metric(
-            BinaryPrecision, MulticlassPrecision, task, threshold, num_classes, average, multidim_average, top_k,
-            ignore_index, validate_args, zero_division, kwargs,
+            BinaryPrecision, MulticlassPrecision, MultilabelPrecision, task, threshold, num_classes, num_labels,
+            average, multidim_average, top_k, ignore_index, validate_args, zero_division, kwargs,
         )
 
 
@@ -160,6 +203,6 @@ class Recall(_ClassificationTaskWrapper):
         **kwargs: Any,
     ):
         return _task_metric(
-            BinaryRecall, MulticlassRecall, task, threshold, num_classes, average, multidim_average, top_k,
-            ignore_index, validate_args, zero_division, kwargs,
+            BinaryRecall, MulticlassRecall, MultilabelRecall, task, threshold, num_classes, num_labels, average,
+            multidim_average, top_k, ignore_index, validate_args, zero_division, kwargs,
         )

@@ -3,8 +3,9 @@
 Counterpart of ``torchmetrics_tpu/classification/precision_recall_curve.py``. With
 ``thresholds`` the state is a static int32 confusion accumulator and the thresholds
 are a buffer on the metric's device; without, raw scores accumulate in list states,
-or, with ``buffer_capacity``, in ``MaskedBuffer`` states of that many samples, whose
-padding counts as invalid samples at compute.
+or, with ``buffer_capacity``, in ``MaskedBuffer`` states of that many samples (of
+``num_labels`` scores each for multilabel), whose padding counts as invalid samples at
+compute.
 ``MulticlassPrecisionRecallCurve(average="micro")`` flattens to one binary problem
 and so reaches the binned-curve CUDA kernel.
 """
@@ -25,14 +26,17 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _binary_precision_recall_curve_format,
     _binary_precision_recall_curve_tensor_validation,
     _binary_precision_recall_curve_update,
-    _macro_curves_not_ported,
     _multiclass_precision_recall_curve_arg_validation,
     _multiclass_precision_recall_curve_compute,
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -50,9 +54,11 @@ def _add_curve_states(
     binned_shape: Tuple[int, ...],
     buffer_capacity: Optional[int],
     pred_item: Tuple[int, ...] = (),
+    label_item: Tuple[int, ...] = (),
 ) -> None:
     """Register the thresholds buffer and the binned accumulator, or the unbinned states:
-    ``MaskedBuffer``s of ``buffer_capacity`` samples when it is given, else lists."""
+    ``MaskedBuffer``s of ``buffer_capacity`` samples when it is given (scores of shape
+    ``pred_item``, labels and validity of shape ``label_item``), else lists."""
     if buffer_capacity is not None and thresholds is not None:
         raise ValueError(
             "`buffer_capacity` only applies to unbinned mode — it cannot be combined"
@@ -68,8 +74,8 @@ def _add_curve_states(
             for name in ("preds", "target", "valid"):
                 metric.add_state(name, [], dist_reduce_fx="cat")
         else:
-            for name, item, dtype in (("preds", pred_item, torch.float32), ("target", (), torch.int32),
-                                      ("valid", (), torch.bool)):
+            for name, item, dtype in (("preds", pred_item, torch.float32), ("target", label_item, torch.int32),
+                                      ("valid", label_item, torch.bool)):
                 metric.add_state(name, MaskedBuffer.create(buffer_capacity, item, dtype), dist_reduce_fx="cat")
     else:
         metric.register_buffer("thresholds", thresholds.to(metric.device), persistent=False)
@@ -96,7 +102,9 @@ def _curve_state(metric: Metric):
         return metric.confmat
     if metric.buffer_capacity is not None:
         # the padding past the count is invalid, as an ignored sample is
-        return metric.preds.data, metric.target.data, metric.valid.data & metric.preds.mask
+        valid = metric.valid.data
+        mask = metric.preds.mask.reshape(metric.preds.mask.shape + (1,) * (valid.ndim - 1))
+        return metric.preds.data, metric.target.data, valid & mask
     return dim_zero_cat(metric.preds), dim_zero_cat(metric.target), dim_zero_cat(metric.valid)
 
 
@@ -163,8 +171,6 @@ class MulticlassPrecisionRecallCurve(Metric):
         super().__init__(**kwargs)
         if validate_args:
             _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
-        if average == "macro":
-            raise _macro_curves_not_ported()
         self.num_classes = num_classes
         self.average = average
         self.ignore_index = ignore_index
@@ -208,6 +214,58 @@ class MulticlassPrecisionRecallCurve(Metric):
         return _multiclass_precision_recall_curve_compute(state, self.num_classes, self.thresholds, self.average)
 
 
+class MultilabelPrecisionRecallCurve(Metric):
+    """Per-label precision-recall curves."""
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        thresholds: Union[int, Sequence[float], Tensor, None] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        buffer_capacity: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        self.num_labels = num_labels
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        thresholds = _adjust_threshold_arg(thresholds)
+        _add_curve_states(
+            self, thresholds, (0 if thresholds is None else len(thresholds), num_labels, 2, 2), buffer_capacity,
+            (num_labels,), (num_labels,),
+        )
+
+    def _compute_group_params(self):
+        return (self.num_labels, self._thresholds_key, self.ignore_index, self.buffer_capacity)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate scores or binned confusion counts."""
+        if self.validate_args:
+            _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        preds, target, valid, _ = _multilabel_precision_recall_curve_format(
+            preds, target, self.num_labels, None, self.ignore_index
+        )
+        if self.thresholds is None:
+            _append_unbinned(self, preds, target, valid)
+        else:
+            self.confmat = self.confmat + _multilabel_precision_recall_curve_update(
+                preds, target, valid, self.num_labels, self.thresholds
+            )
+
+    def compute(self):
+        """(precision, recall, thresholds) per label."""
+        return _multilabel_precision_recall_curve_compute(
+            _curve_state(self), self.num_labels, self.thresholds, self.ignore_index
+        )
+
+
 class PrecisionRecallCurve(_ClassificationTaskWrapper):
     """Task-dispatch wrapper for the precision-recall curve."""
 
@@ -229,4 +287,8 @@ class PrecisionRecallCurve(_ClassificationTaskWrapper):
             if not isinstance(num_classes, int):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassPrecisionRecallCurve(num_classes, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelPrecisionRecallCurve(num_labels, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -1,8 +1,8 @@
 """Stateful stat-scores bases and the ``StatScores`` family.
 
 Counterpart of ``torchmetrics_tpu/classification/stat_scores.py``. Every counting
-metric (Accuracy, FBeta, ...) subclasses one of the task bases here and overrides
-only ``compute``.
+metric (Accuracy, FBeta, ...) subclasses one of the three task bases here (binary,
+multiclass, multilabel) and overrides only ``compute``.
 """
 
 from __future__ import annotations
@@ -24,7 +24,11 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
-    _multilabel_not_ported,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_compute,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
@@ -160,6 +164,55 @@ class MulticlassStatScores(_AbstractStatScores):
         return _multiclass_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
 
 
+class MultilabelStatScores(_AbstractStatScores):
+    """Per-label true/false positives/negatives for multilabel tasks."""
+
+    is_differentiable: bool = False
+    higher_is_better: Optional[bool] = None
+    full_state_update: bool = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        threshold: float = 0.5,
+        average: Optional[str] = "macro",
+        multidim_average: str = "global",
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        self.num_labels = num_labels
+        self.threshold = threshold
+        self.average = average
+        self.multidim_average = multidim_average
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_state(size=num_labels, multidim_average=multidim_average)
+
+    def _compute_group_params(self):
+        return (self.num_labels, self.threshold, self.multidim_average, self.ignore_index)
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update tp/fp/tn/fn with a batch."""
+        if self.validate_args:
+            _multilabel_stat_scores_tensor_validation(
+                preds, target, self.num_labels, self.multidim_average, self.ignore_index
+            )
+        preds, target, valid = _multilabel_stat_scores_format(
+            preds, target, self.num_labels, self.threshold, self.ignore_index
+        )
+        tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, valid, self.multidim_average)
+        self._update_state(tp, fp, tn, fn)
+
+    def compute(self) -> Tensor:
+        """Return [..., 5] stat scores per label (summed over labels if ``average='micro'``)."""
+        tp, fp, tn, fn = self._final_state()
+        return _multilabel_stat_scores_compute(tp, fp, tn, fn, self.average, self.multidim_average)
+
+
 class StatScores(_ClassificationTaskWrapper):
     """Task-dispatch wrapper: ``StatScores(task="binary") == BinaryStatScores()``."""
 
@@ -190,4 +243,8 @@ class StatScores(_ClassificationTaskWrapper):
             if not isinstance(top_k, int):
                 raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
             return MulticlassStatScores(num_classes, top_k, average, **kwargs)
-        raise _multilabel_not_ported(cls.__name__)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelStatScores(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

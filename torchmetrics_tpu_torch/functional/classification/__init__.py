@@ -1,11 +1,22 @@
-"""Functional classification metrics of the port (binary and multiclass)."""
+"""Functional classification metrics of the port (binary, multiclass and multilabel)."""
 
-from torchmetrics_tpu_torch.functional.classification.accuracy import accuracy, binary_accuracy, multiclass_accuracy
-from torchmetrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc
+from torchmetrics_tpu_torch.functional.classification.accuracy import (
+    accuracy,
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
+)
+from torchmetrics_tpu_torch.functional.classification.auroc import (
+    auroc,
+    binary_auroc,
+    multiclass_auroc,
+    multilabel_auroc,
+)
 from torchmetrics_tpu_torch.functional.classification.average_precision import (
     average_precision,
     binary_average_precision,
     multiclass_average_precision,
+    multilabel_average_precision,
 )
 from torchmetrics_tpu_torch.functional.classification.calibration_error import (
     binary_calibration_error,
@@ -21,6 +32,7 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
     confusion_matrix,
     multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
 )
 from torchmetrics_tpu_torch.functional.classification.f_beta import (
     binary_f1_score,
@@ -29,34 +41,42 @@ from torchmetrics_tpu_torch.functional.classification.f_beta import (
     fbeta_score,
     multiclass_f1_score,
     multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
 )
 from torchmetrics_tpu_torch.functional.classification.jaccard import (
     binary_jaccard_index,
     jaccard_index,
     multiclass_jaccard_index,
+    multilabel_jaccard_index,
 )
 from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import (
     binary_matthews_corrcoef,
     matthews_corrcoef,
     multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
 )
 from torchmetrics_tpu_torch.functional.classification.precision_recall import (
     binary_precision,
     binary_recall,
     multiclass_precision,
     multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
     precision,
     recall,
 )
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
     precision_recall_curve,
 )
-from torchmetrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, roc
+from torchmetrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
     multiclass_stat_scores,
+    multilabel_stat_scores,
     stat_scores,
 )
 
@@ -101,6 +121,19 @@ __all__ = [
     "multiclass_recall",
     "multiclass_roc",
     "multiclass_stat_scores",
+    "multilabel_accuracy",
+    "multilabel_auroc",
+    "multilabel_average_precision",
+    "multilabel_confusion_matrix",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "multilabel_jaccard_index",
+    "multilabel_matthews_corrcoef",
+    "multilabel_precision",
+    "multilabel_precision_recall_curve",
+    "multilabel_recall",
+    "multilabel_roc",
+    "multilabel_stat_scores",
     "precision",
     "precision_recall_curve",
     "recall",

@@ -1,4 +1,4 @@
-"""AUROC: binary and multiclass, plus task dispatch.
+"""AUROC: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/auroc.py``: derives from
 the ROC curve state and integrates with the trapezoidal rule.
@@ -20,9 +20,16 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
 )
-from torchmetrics_tpu_torch.functional.classification.roc import _binary_roc_compute, _multiclass_roc_compute
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
+from torchmetrics_tpu_torch.functional.classification.roc import (
+    _binary_roc_compute,
+    _multiclass_roc_compute,
+    _multilabel_roc_compute,
+)
 from torchmetrics_tpu_torch.utils.compute import _auc_compute_without_check
 from torchmetrics_tpu_torch.utils.data import interp, safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
@@ -149,6 +156,52 @@ def multiclass_auroc(
     return _multiclass_auroc_compute(state, num_classes, thresholds, average)
 
 
+def _multilabel_auroc_compute(
+    state: CurveState,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+    average: Optional[str] = "macro",
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    if average == "micro":
+        if isinstance(state, Tensor) and thresholds is not None:
+            return _binary_auroc_compute(state.sum(dim=1), thresholds, max_fpr=None)
+        preds, target, valid = state
+        return _binary_auroc_compute((preds.reshape(-1), target.reshape(-1), valid.reshape(-1)), None, max_fpr=None)
+    fpr, tpr, _ = _multilabel_roc_compute(state, num_labels, thresholds, ignore_index)
+    return _reduce_auroc(fpr, tpr, average, _multilabel_weights(state, thresholds))
+
+
+def _multilabel_weights(state: CurveState, thresholds: Optional[Tensor]) -> Tensor:
+    """float32 [L] positives per label: from the first threshold's row of the binned
+    state, or counted over the valid samples."""
+    if isinstance(state, Tensor) and thresholds is not None:
+        return state[0, :, 1, :].sum(dim=-1).to(torch.float32)
+    _, target, valid = state
+    return ((target == 1) & valid).sum(dim=0).to(torch.float32)
+
+
+def multilabel_auroc(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    average: Optional[str] = "macro",
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """AUROC for multilabel tasks (micro: one curve over every (sample, label) pair)."""
+    if validate_args:
+        _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        _validate_average_arg(average, allowed=("micro", "macro", "weighted", "none", None))
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, valid, num_labels, thresholds)
+    return _multilabel_auroc_compute(state, num_labels, thresholds, average, ignore_index)
+
+
 def auroc(
     preds: Tensor,
     target: Tensor,
@@ -169,4 +222,8 @@ def auroc(
         if not isinstance(num_classes, int):
             raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
         return multiclass_auroc(preds, target, num_classes, average, thresholds, ignore_index, validate_args)
-    raise _multilabel_not_ported("auroc")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_auroc(preds, target, num_labels, average, thresholds, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

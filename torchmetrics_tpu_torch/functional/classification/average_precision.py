@@ -1,10 +1,9 @@
-"""Average precision: binary and multiclass, plus task dispatch.
+"""Average precision: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/average_precision.py``:
 ``AP = sum_n (R_n - R_{n-1}) * P_n`` over the precision-recall curve. The binned
 binary update counts with the binned-curve kernel on the card; the binned multiclass
-update is the plain ``einsum`` of the curve module. Multilabel comes with a later
-slice.
+and multilabel updates are the plain ``einsum`` of the curve module.
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-from torchmetrics_tpu_torch.functional.classification.auroc import _validate_average_arg
+from torchmetrics_tpu_torch.functional.classification.auroc import _multilabel_weights, _validate_average_arg
 from torchmetrics_tpu_torch.functional.classification.precision_recall_curve import (
     CurveState,
     _binary_precision_recall_curve_arg_validation,
@@ -26,8 +25,12 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.data import safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 from torchmetrics_tpu_torch.utils.prints import rank_zero_warn
@@ -131,6 +134,43 @@ def multiclass_average_precision(
     return _multiclass_average_precision_compute(state, num_classes, thresholds, average)
 
 
+def _multilabel_average_precision_compute(
+    state: CurveState,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+    average: Optional[str] = "macro",
+    ignore_index: Optional[int] = None,
+) -> Tensor:
+    if average == "micro":
+        if isinstance(state, Tensor) and thresholds is not None:
+            return _binary_average_precision_compute(state.sum(dim=1), thresholds)
+        preds, target, valid = state
+        return _binary_average_precision_compute((preds.reshape(-1), target.reshape(-1), valid.reshape(-1)), None)
+    precision, recall, _ = _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)
+    return _reduce_average_precision(precision, recall, average, _multilabel_weights(state, thresholds))
+
+
+def multilabel_average_precision(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    average: Optional[str] = "macro",
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Average precision for multilabel tasks (micro: one curve over every (sample, label) pair)."""
+    if validate_args:
+        _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        _validate_average_arg(average, allowed=("micro", "macro", "weighted", "none", None))
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, valid, num_labels, thresholds)
+    return _multilabel_average_precision_compute(state, num_labels, thresholds, average, ignore_index)
+
+
 def average_precision(
     preds: Tensor,
     target: Tensor,
@@ -150,4 +190,10 @@ def average_precision(
         if not isinstance(num_classes, int):
             raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
         return multiclass_average_precision(preds, target, num_classes, average, thresholds, ignore_index, validate_args)
-    raise _multilabel_not_ported("average_precision")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_average_precision(
+            preds, target, num_labels, average, thresholds, ignore_index, validate_args
+        )
+    raise ValueError(f"Not handled value: {task}")

@@ -1,10 +1,11 @@
-"""Confusion matrix: binary and multiclass, plus task dispatch.
+"""Confusion matrix: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/confusion_matrix.py``.
 The JAX package contracts two one-hot encodings on the MXU, or calls its Pallas
 kernel; here ``_masked_confmat`` is a histogram over ``target*C + pred``, counted
 by the hand-written CUDA kernel for tensors on the card (``ops.kernels``) at every
-C. ``ignore_index`` removal is a validity mask. Multilabel comes with a later slice.
+C. ``ignore_index`` removal is a validity mask. The multilabel ``[L, 2, 2]`` matrices
+are plain sums, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ import torch
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _is_traced,
     _maybe_apply_sigmoid,
-    _multilabel_not_ported,
     _unique_values,
 )
 from torchmetrics_tpu_torch.ops import kernels
@@ -247,6 +247,106 @@ def multiclass_confusion_matrix(
     return _multiclass_confusion_matrix_compute(confmat, normalize)
 
 
+# ------------------------------------------------------------------------ multilabel
+
+
+def _multilabel_confusion_matrix_arg_validation(
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+    normalize: Optional[str] = None,
+) -> None:
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float in the [0,1] range, but got {threshold}.")
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
+    allowed_normalize = ("true", "pred", "all", "none", None)
+    if normalize not in allowed_normalize:
+        raise ValueError(f"Expected argument `normalize` to be one of {allowed_normalize}, but got {normalize}.")
+
+
+def _multilabel_confusion_matrix_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    ignore_index: Optional[int] = None,
+) -> None:
+    if preds.shape != target.shape:
+        raise ValueError(
+            "The `preds` and `target` should have the same shape,"
+            f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
+        )
+    if preds.ndim < 2 or preds.shape[1] != num_labels:
+        raise ValueError("Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels")
+    if _is_traced(preds, target):
+        return
+    unique_values = _unique_values(target)
+    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+    if not unique_values.issubset(allowed):
+        raise RuntimeError(
+            f"Detected the following values in `target`: {sorted(unique_values)} but expected only"
+            f" the following values {sorted(allowed)}."
+        )
+
+
+def _multilabel_confusion_matrix_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+    should_threshold: bool = True,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns preds/target of shape [N*X, L] (int unless ``should_threshold`` is off)
+    plus a validity mask [N*X, L]."""
+    if preds.is_floating_point():
+        preds = _maybe_apply_sigmoid(preds)
+        if should_threshold:
+            preds = (preds > threshold).to(torch.int32)
+    else:
+        preds = preds.to(torch.int32)
+    preds = torch.movedim(preds.reshape(preds.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
+    target = torch.movedim(target.reshape(target.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
+    valid = torch.ones_like(target, dtype=torch.bool) if ignore_index is None else target != ignore_index
+    target = torch.where(valid, target, torch.zeros_like(target)).to(torch.int32)
+    return preds, target, valid
+
+
+def _multilabel_confusion_matrix_update(preds: Tensor, target: Tensor, valid: Tensor, num_labels: int) -> Tensor:
+    """int32 [L, 2, 2] per-label confusion matrices (rows = target, cols = prediction)."""
+    p = preds == 1
+    t = target == 1
+    tp = (p & t & valid).sum(dim=0, dtype=torch.int32)
+    fp = (p & ~t & valid).sum(dim=0, dtype=torch.int32)
+    fn = (~p & t & valid).sum(dim=0, dtype=torch.int32)
+    tn = (~p & ~t & valid).sum(dim=0, dtype=torch.int32)
+    return torch.stack([tn, fp, fn, tp], dim=-1).reshape(num_labels, 2, 2)
+
+
+def _multilabel_confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) -> Tensor:
+    return _confusion_matrix_reduce(confmat, normalize)
+
+
+def multilabel_confusion_matrix(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    normalize: Optional[str] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """The [L, 2, 2] per-label confusion matrices for multilabel tasks."""
+    if validate_args:
+        _multilabel_confusion_matrix_arg_validation(num_labels, threshold, ignore_index, normalize)
+        _multilabel_confusion_matrix_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid = _multilabel_confusion_matrix_format(preds, target, num_labels, threshold, ignore_index)
+    confmat = _multilabel_confusion_matrix_update(preds, target, valid, num_labels)
+    return _multilabel_confusion_matrix_compute(confmat, normalize)
+
+
 # -------------------------------------------------------------------------- dispatch
 
 
@@ -269,4 +369,10 @@ def confusion_matrix(
         if not isinstance(num_classes, int):
             raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
         return multiclass_confusion_matrix(preds, target, num_classes, normalize, ignore_index, validate_args)
-    raise _multilabel_not_ported("confusion_matrix")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_confusion_matrix(
+            preds, target, num_labels, threshold, normalize, ignore_index, validate_args
+        )
+    raise ValueError(f"Not handled value: {task}")

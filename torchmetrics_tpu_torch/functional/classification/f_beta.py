@@ -1,4 +1,4 @@
-"""F-beta / F1: binary and multiclass, plus task dispatch.
+"""F-beta / F1: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/f_beta.py``.
 """
@@ -19,7 +19,10 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
-    _multilabel_not_ported,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -111,6 +114,48 @@ def multiclass_f1_score(
     )
 
 
+def multilabel_fbeta_score(
+    preds: Tensor,
+    target: Tensor,
+    beta: float,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """F-beta for multilabel tasks."""
+    if validate_args:
+        _fbeta_arg_check(beta)
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target, valid = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, valid, multidim_average)
+    return _fbeta_reduce(
+        tp, fp, tn, fn, beta, average=average, multidim_average=multidim_average,
+        multilabel=True, zero_division=zero_division,
+    )
+
+
+def multilabel_f1_score(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """F1 for multilabel tasks."""
+    return multilabel_fbeta_score(
+        preds, target, 1.0, num_labels, threshold, average, multidim_average, ignore_index, validate_args, zero_division
+    )
+
+
 def fbeta_score(
     preds: Tensor,
     target: Tensor,
@@ -141,7 +186,14 @@ def fbeta_score(
             preds, target, beta, num_classes, average, top_k, multidim_average, ignore_index, validate_args,
             zero_division,
         )
-    raise _multilabel_not_ported("fbeta_score")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_fbeta_score(
+            preds, target, beta, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
+            zero_division,
+        )
+    raise ValueError(f"Not handled value: {task}")
 
 
 def f1_score(

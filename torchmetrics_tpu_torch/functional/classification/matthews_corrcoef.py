@@ -1,11 +1,12 @@
-"""Matthews correlation coefficient: binary and multiclass, plus task dispatch.
+"""Matthews correlation coefficient: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/matthews_corrcoef.py``:
 computed from the confusion matrix (the confusion-matrix kernel on the card), with the
 JAX package's formula and its float32 arithmetic. ``s**2 - sum(pk**2)`` cancels at
 large sample counts (at 4e6 samples one float32 ulp of ``s**2`` is 2^21), and the
 card and the CPU sum the class marginals in different orders, so the two agree to
-about 1e-6 absolute rather than bitwise. Multilabel comes with a later slice.
+about 1e-6 absolute rather than bitwise. A multilabel ``[L, 2, 2]`` state is summed
+to one 2x2 matrix first.
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ from torchmetrics_tpu_torch.functional.classification.confusion_matrix import (
     _multiclass_confusion_matrix_format,
     _multiclass_confusion_matrix_tensor_validation,
     _multiclass_confusion_matrix_update,
+    _multilabel_confusion_matrix_arg_validation,
+    _multilabel_confusion_matrix_format,
+    _multilabel_confusion_matrix_tensor_validation,
+    _multilabel_confusion_matrix_update,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -35,11 +39,14 @@ _SQRT_EPS = float(np.sqrt(np.float32(_EPS)))  # rounded to float32, as JAX compu
 
 
 def _matthews_corrcoef_reduce(confmat: Tensor) -> Tensor:
-    """MCC from a [C, C] confusion matrix; a zero denominator gives 0.
+    """MCC from a [C, C] confusion matrix (a multilabel [L, 2, 2] one is summed over its
+    labels first); a zero denominator gives 0.
 
     A binary matrix with a zero covariance denominator takes the eps-regularised
     formula instead, which gives +-1 for perfect and inverted constant predictors.
     """
+    if confmat.ndim == 3:
+        confmat = confmat.sum(dim=0)
     confmat = confmat.to(torch.float32)
     tk = confmat.sum(dim=-1)
     pk = confmat.sum(dim=-2)
@@ -96,6 +103,22 @@ def multiclass_matthews_corrcoef(
     return _matthews_corrcoef_reduce(_multiclass_confusion_matrix_update(preds, target, valid, num_classes))
 
 
+def multilabel_matthews_corrcoef(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """MCC for multilabel tasks, over the summed per-label 2x2 matrices."""
+    if validate_args:
+        _multilabel_confusion_matrix_arg_validation(num_labels, threshold, ignore_index, normalize=None)
+        _multilabel_confusion_matrix_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid = _multilabel_confusion_matrix_format(preds, target, num_labels, threshold, ignore_index)
+    return _matthews_corrcoef_reduce(_multilabel_confusion_matrix_update(preds, target, valid, num_labels))
+
+
 def matthews_corrcoef(
     preds: Tensor,
     target: Tensor,
@@ -114,4 +137,8 @@ def matthews_corrcoef(
         if not isinstance(num_classes, int):
             raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
         return multiclass_matthews_corrcoef(preds, target, num_classes, ignore_index, validate_args)
-    raise _multilabel_not_ported("matthews_corrcoef")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_matthews_corrcoef(preds, target, num_labels, threshold, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

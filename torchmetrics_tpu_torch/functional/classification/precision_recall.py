@@ -1,8 +1,8 @@
-"""Precision and recall: binary and multiclass, plus task dispatch.
+"""Precision and recall: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/precision_recall.py``: both
 reduce the stat-score counts, whose macro multiclass update is the confusion-matrix
-kernel's histogram. Multilabel comes with a later slice.
+kernel's histogram; the multilabel counts are plain sums.
 """
 
 from __future__ import annotations
@@ -21,7 +21,10 @@ from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
-    _multilabel_not_ported,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -73,6 +76,29 @@ def _multiclass_precision_recall(
     )
 
 
+def _multilabel_precision_recall(
+    stat: str,
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float,
+    average: Optional[str],
+    multidim_average: str,
+    ignore_index: Optional[int],
+    validate_args: bool,
+    zero_division: float,
+) -> Tensor:
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target, valid = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, valid, multidim_average)
+    return _precision_recall_reduce(
+        stat, tp, fp, tn, fn, average=average, multidim_average=multidim_average,
+        multilabel=True, zero_division=zero_division,
+    )
+
+
 def binary_precision(
     preds: Tensor,
     target: Tensor,
@@ -102,6 +128,24 @@ def multiclass_precision(
     """Precision for multiclass tasks."""
     return _multiclass_precision_recall(
         "precision", preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args,
+        zero_division,
+    )
+
+
+def multilabel_precision(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Precision for multilabel tasks."""
+    return _multilabel_precision_recall(
+        "precision", preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
         zero_division,
     )
 
@@ -139,6 +183,24 @@ def multiclass_recall(
     )
 
 
+def multilabel_recall(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+    zero_division: float = 0.0,
+) -> Tensor:
+    """Recall for multilabel tasks."""
+    return _multilabel_precision_recall(
+        "recall", preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
+        zero_division,
+    )
+
+
 def _dispatch(
     stat: str,
     preds: Tensor,
@@ -146,6 +208,7 @@ def _dispatch(
     task: str,
     threshold: float,
     num_classes: Optional[int],
+    num_labels: Optional[int],
     average: Optional[str],
     multidim_average: str,
     top_k: int,
@@ -167,7 +230,14 @@ def _dispatch(
             stat, preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args,
             zero_division,
         )
-    raise _multilabel_not_ported(stat)
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return _multilabel_precision_recall(
+            stat, preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args,
+            zero_division,
+        )
+    raise ValueError(f"Not handled value: {task}")
 
 
 def precision(
@@ -186,8 +256,8 @@ def precision(
 ) -> Tensor:
     """Task-dispatching precision."""
     return _dispatch(
-        "precision", preds, target, task, threshold, num_classes, average, multidim_average, top_k, ignore_index,
-        validate_args, zero_division,
+        "precision", preds, target, task, threshold, num_classes, num_labels, average, multidim_average, top_k,
+        ignore_index, validate_args, zero_division,
     )
 
 
@@ -207,6 +277,6 @@ def recall(
 ) -> Tensor:
     """Task-dispatching recall."""
     return _dispatch(
-        "recall", preds, target, task, threshold, num_classes, average, multidim_average, top_k, ignore_index,
-        validate_args, zero_division,
+        "recall", preds, target, task, threshold, num_classes, num_labels, average, multidim_average, top_k,
+        ignore_index, validate_args, zero_division,
     )

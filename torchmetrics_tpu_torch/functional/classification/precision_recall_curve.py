@@ -1,19 +1,21 @@
-"""Precision-recall curve core: binary and multiclass, plus task dispatch.
+"""Precision-recall curve core: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/precision_recall_curve.py``;
 the ROC and AUROC family derive from the state computed here.
 
 - **Binned mode** (``thresholds`` given): the state is a static ``[T, 2, 2]`` (binary)
-  or ``[T, C, 2, 2]`` (multiclass) int32 confusion accumulator. The binary update's
-  per-threshold counts come from the hand-written CUDA kernel for tensors on the card
-  (``ops.kernels.binned_curve_counts``) at every T; the multiclass update is a plain
-  ``einsum``, as it is plain XLA in the JAX package.
+  or ``[T, C, 2, 2]`` (multiclass, multilabel) int32 confusion accumulator. The binary
+  update's per-threshold counts come from the hand-written CUDA kernel for tensors on
+  the card (``ops.kernels.binned_curve_counts``) at every T; the multiclass and
+  multilabel updates are a plain ``einsum``, as they are plain XLA in the JAX package.
 - **Unbinned mode** (``thresholds=None``): sort, cumsum and de-duplicated thresholds,
   with data-dependent shapes (the module classes keep list states for it).
 
 The default threshold grid is bitwise the JAX package's ``jnp.linspace(0, 1, T)``
 (``torch.linspace`` differs from it in the last bit for many T, and a threshold one
-ulp off flips ``score >= thr`` at ties). Macro-averaged curves are not ported yet.
+ulp off flips ``score >= thr`` at ties). A macro-averaged curve interpolates each
+class's recall onto the sorted union of precisions with ``utils.data.interp``, which
+brackets as ``jnp.interp`` does on a precision curve, which is not monotone.
 """
 
 from __future__ import annotations
@@ -26,11 +28,10 @@ import torch
 from torchmetrics_tpu_torch.functional.classification.stat_scores import (
     _is_traced,
     _maybe_apply_sigmoid,
-    _multilabel_not_ported,
     _unique_values,
 )
 from torchmetrics_tpu_torch.ops import kernels
-from torchmetrics_tpu_torch.utils.data import one_hot, safe_divide
+from torchmetrics_tpu_torch.utils.data import interp, one_hot, safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
@@ -193,6 +194,8 @@ def _binary_precision_recall_curve_compute(
         recall = torch.cat([recall, torch.zeros(1, dtype=recall.dtype, device=recall.device)])
         return precision, recall, thresholds
     preds, target, valid = state
+    if _is_traced(preds, target, valid):
+        return _binary_precision_recall_curve_static(preds, target, valid)
     preds, target = preds[valid], target[valid]
     fps, tps, thres = _binary_clf_curve(preds, target, pos_label=pos_label)
     precision = tps / (tps + fps)
@@ -204,6 +207,25 @@ def _binary_precision_recall_curve_compute(
     precision = torch.cat([precision[sl].flip(0), torch.ones(1, device=precision.device)])
     recall = torch.cat([recall[sl].flip(0), torch.zeros(1, device=recall.device)])
     return precision, recall, thres[sl].flip(0)
+
+
+def _binary_precision_recall_curve_static(
+    preds: Tensor, target: Tensor, valid: Tensor
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """The unbinned curve with static shapes, for a compute that a CUDA graph records
+    (JAX's jitted variant): one point per sample, no de-duplicated thresholds and no cut
+    at full recall. An ignored sample weighs 0 and so makes a segment of zero width;
+    with distinct scores this is the eager curve."""
+    order = torch.argsort(preds, stable=True).flip(0)
+    w = valid[order].to(torch.float32)
+    t_s = target[order].to(torch.float32) * w
+    tps = torch.cumsum(t_s, dim=0)
+    fps = torch.cumsum(w, dim=0) - tps
+    precision = safe_divide(tps, tps + fps)
+    recall = safe_divide(tps, tps[-1])
+    one = torch.ones(1, device=preds.device)
+    return (torch.cat([precision.flip(0), one]), torch.cat([recall.flip(0), torch.zeros_like(one)]),
+            preds[order].flip(0))
 
 
 def binary_precision_recall_curve(
@@ -306,10 +328,20 @@ def _multiclass_precision_recall_curve_update(
     return _stack_confmat(neg[None, :] - fps, fps, pos[None, :] - tps, tps)
 
 
-def _macro_curves_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "Macro-averaged precision-recall curves are not ported yet; use average=None or 'micro'."
-    )
+def _pr_curve_macro_average(precision, recall, thres, num_classes: int):
+    """Macro-average per-class PR curves: interpolate each class's recall onto the
+    sorted union of precisions and average (binned: ``[C, T+1]`` tensors; unbinned:
+    lists). ``interp`` brackets as ``jnp.interp`` does on these non-monotone curves."""
+    if isinstance(precision, Tensor) and precision.ndim == 2:
+        all_thres = torch.sort(thres.repeat(num_classes)).values
+        mean_precision = torch.sort(precision.flatten()).values
+        per_class = [interp(mean_precision, precision[i], recall[i]) for i in range(num_classes)]
+    else:
+        all_thres = torch.sort(torch.cat(thres)).values
+        mean_precision = torch.sort(torch.cat(precision)).values
+        per_class = [interp(mean_precision, p, r) for p, r in zip(precision, recall)]
+    mean_recall = torch.stack(per_class).mean(dim=0)
+    return mean_precision, mean_recall, all_thres
 
 
 def _multiclass_precision_recall_curve_compute(
@@ -321,8 +353,6 @@ def _multiclass_precision_recall_curve_compute(
     """(precision, recall, thresholds): tensors when binned, lists when unbinned."""
     if average == "micro":
         return _binary_precision_recall_curve_compute(state, thresholds)
-    if average == "macro":
-        raise _macro_curves_not_ported()
     if thresholds is not None and isinstance(state, Tensor):
         tps = state[:, :, 1, 1].to(torch.float32)
         fps = state[:, :, 0, 1].to(torch.float32)
@@ -332,6 +362,8 @@ def _multiclass_precision_recall_curve_compute(
         ones = torch.ones((1, num_classes), dtype=precision.dtype, device=precision.device)
         precision = torch.cat([precision, ones], dim=0).T
         recall = torch.cat([recall, torch.zeros_like(ones)], dim=0).T
+        if average == "macro":
+            return _pr_curve_macro_average(precision, recall, thresholds, num_classes)
         return precision, recall, thresholds
     preds, target, valid = state
     preds, target = preds[valid], target[valid]
@@ -344,6 +376,8 @@ def _multiclass_precision_recall_curve_compute(
         precisions.append(p)
         recalls.append(r)
         thresh.append(t)
+    if average == "macro":
+        return _pr_curve_macro_average(precisions, recalls, thresh, num_classes)
     return precisions, recalls, thresh
 
 
@@ -360,8 +394,6 @@ def multiclass_precision_recall_curve(
     if validate_args:
         _multiclass_precision_recall_curve_arg_validation(num_classes, thresholds, ignore_index, average)
         _multiclass_precision_recall_curve_tensor_validation(preds, target, num_classes, ignore_index)
-    if average == "macro":
-        raise _macro_curves_not_ported()
     preds, target, valid, thresholds = _multiclass_precision_recall_curve_format(
         preds, target, num_classes, thresholds, ignore_index, average
     )
@@ -370,6 +402,122 @@ def multiclass_precision_recall_curve(
         return _binary_precision_recall_curve_compute(state, thresholds)
     state = _multiclass_precision_recall_curve_update(preds, target, valid, num_classes, thresholds)
     return _multiclass_precision_recall_curve_compute(state, num_classes, thresholds, average)
+
+
+# ------------------------------------------------------------------------ multilabel
+
+
+def _multilabel_precision_recall_curve_arg_validation(
+    num_labels: int,
+    thresholds=None,
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
+
+
+def _multilabel_precision_recall_curve_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    ignore_index: Optional[int] = None,
+) -> None:
+    if preds.shape != target.shape:
+        raise ValueError(
+            "The `preds` and `target` should have the same shape,"
+            f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
+        )
+    if not preds.is_floating_point():
+        raise ValueError("Expected `preds` to be a float tensor with probabilities/logits")
+    if preds.ndim < 2 or preds.shape[1] != num_labels:
+        raise ValueError("Expected `preds.shape[1]` to equal the number of labels")
+
+
+def _multilabel_precision_recall_curve_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds=None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]:
+    """Returns (preds [N*X, L], target [N*X, L], valid [N*X, L], thresholds)."""
+    preds = torch.movedim(preds.reshape(preds.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
+    target = torch.movedim(target.reshape(target.shape[0], num_labels, -1), 1, -1).reshape(-1, num_labels)
+    preds = _maybe_apply_sigmoid(preds)
+    valid = torch.ones_like(target, dtype=torch.bool) if ignore_index is None else target != ignore_index
+    target = torch.where(valid, target, torch.zeros_like(target)).to(torch.int32)
+    return preds, target, valid, _adjust_threshold_arg(thresholds, preds.device)
+
+
+def _multilabel_precision_recall_curve_update(
+    preds: Tensor,
+    target: Tensor,
+    valid: Tensor,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+) -> CurveState:
+    """Binned: int32 [T, L, 2, 2] accumulator from the [N, L, T] compare and two ``einsum``
+    contractions (plain torch, as plain XLA in the JAX package). Unbinned: the raw triple."""
+    if thresholds is None:
+        return preds, target, valid
+    v = valid.to(torch.float32)
+    t1 = target.to(torch.float32) * v  # [N, L]
+    t0 = (1.0 - target.to(torch.float32)) * v
+    pge = (preds[:, :, None] >= thresholds[None, None, :]).to(torch.float32)  # [N, L, T]
+    tps = torch.einsum("nlt,nl->tl", pge, t1)
+    fps = torch.einsum("nlt,nl->tl", pge, t0)
+    pos = t1.sum(dim=0)
+    neg = t0.sum(dim=0)
+    return _stack_confmat(neg[None, :] - fps, fps, pos[None, :] - tps, tps)
+
+
+def _multilabel_precision_recall_curve_compute(
+    state: CurveState,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+    ignore_index: Optional[int] = None,
+):
+    """(precision, recall, thresholds) per label: [L, T+1] tensors when binned, lists
+    when unbinned."""
+    if thresholds is not None and isinstance(state, Tensor):
+        tps = state[:, :, 1, 1].to(torch.float32)
+        fps = state[:, :, 0, 1].to(torch.float32)
+        fns = state[:, :, 1, 0].to(torch.float32)
+        precision = safe_divide(tps, tps + fps)
+        recall = safe_divide(tps, tps + fns)
+        ones = torch.ones((1, num_labels), dtype=precision.dtype, device=precision.device)
+        precision = torch.cat([precision, ones], dim=0).T
+        recall = torch.cat([recall, torch.zeros_like(ones)], dim=0).T
+        return precision, recall, thresholds
+    preds, target, valid = state
+    precisions, recalls, thresh = [], [], []
+    for label in range(num_labels):
+        # each label's curve keeps its valid samples, or under a capture weighs the rest 0
+        p, r, t = _binary_precision_recall_curve_compute((preds[:, label], target[:, label], valid[:, label]), None)
+        precisions.append(p)
+        recalls.append(r)
+        thresh.append(t)
+    return precisions, recalls, thresh
+
+
+def multilabel_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    """Per-label precision-recall curves."""
+    if validate_args:
+        _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, valid, num_labels, thresholds)
+    return _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)
 
 
 # -------------------------------------------------------------------------- dispatch
@@ -396,4 +544,8 @@ def precision_recall_curve(
         return multiclass_precision_recall_curve(
             preds, target, num_classes, thresholds, average, ignore_index, validate_args
         )
-    raise _multilabel_not_ported("precision_recall_curve")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_precision_recall_curve(preds, target, num_labels, thresholds, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

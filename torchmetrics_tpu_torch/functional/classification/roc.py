@@ -1,4 +1,4 @@
-"""ROC curves: binary and multiclass, plus task dispatch.
+"""ROC curves: binary, multiclass and multilabel, plus task dispatch.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/roc.py``; shares formats
 and updates (and so the module state) with the precision-recall curve.
@@ -21,8 +21,12 @@ from torchmetrics_tpu_torch.functional.classification.precision_recall_curve imp
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
 )
-from torchmetrics_tpu_torch.functional.classification.stat_scores import _multilabel_not_ported
+from torchmetrics_tpu_torch.functional.classification.stat_scores import _is_traced
 from torchmetrics_tpu_torch.utils.data import interp, safe_divide
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -44,6 +48,8 @@ def _binary_roc_compute(
         fpr = safe_divide(fps, fps + tns).flip(0)
         return fpr, tpr, thresholds.flip(0)
     preds, target, valid = state
+    if _is_traced(preds, target, valid):
+        return _binary_roc_static(preds, target, valid)
     preds, target = preds[valid], target[valid]
     fps, tps, thres = _binary_clf_curve(preds, target, pos_label=pos_label)
     # prepend the (0, 0) origin with its threshold pinned at 1.0
@@ -51,6 +57,20 @@ def _binary_roc_compute(
     tps = torch.cat([zero, tps])
     fps = torch.cat([zero, fps])
     thres = torch.cat([torch.ones(1, dtype=thres.dtype, device=thres.device), thres])
+    return safe_divide(fps, fps[-1]), safe_divide(tps, tps[-1]), thres
+
+
+def _binary_roc_static(preds: Tensor, target: Tensor, valid: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The unbinned ROC with static shapes, for a compute that a CUDA graph records
+    (JAX's jitted variant): one point per sample after the (0, 0) origin; an ignored
+    sample weighs 0."""
+    order = torch.argsort(preds, stable=True).flip(0)
+    w = valid[order].to(torch.float32)
+    t_s = target[order].to(torch.float32) * w
+    zero = torch.zeros(1, device=preds.device)
+    tps = torch.cat([zero, torch.cumsum(t_s, dim=0)])
+    fps = torch.cat([zero, torch.cumsum(w, dim=0) - torch.cumsum(t_s, dim=0)])
+    thres = torch.cat([torch.ones(1, dtype=preds.dtype, device=preds.device), preds[order]])
     return safe_divide(fps, fps[-1]), safe_divide(tps, tps[-1]), thres
 
 
@@ -142,6 +162,50 @@ def multiclass_roc(
     return _multiclass_roc_compute(state, num_classes, thresholds, average)
 
 
+def _multilabel_roc_compute(
+    state: CurveState,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+    ignore_index: Optional[int] = None,
+):
+    """(fpr, tpr, thresholds) per label, thresholds in decreasing order."""
+    if thresholds is not None and isinstance(state, Tensor):
+        tps = state[:, :, 1, 1].to(torch.float32)
+        fps = state[:, :, 0, 1].to(torch.float32)
+        fns = state[:, :, 1, 0].to(torch.float32)
+        tns = state[:, :, 0, 0].to(torch.float32)
+        tpr = safe_divide(tps, tps + fns).flip(0).T  # [L, T]
+        fpr = safe_divide(fps, fps + tns).flip(0).T
+        return fpr, tpr, thresholds.flip(0)
+    preds, target, valid = state
+    fprs, tprs, thres = [], [], []
+    for label in range(num_labels):
+        f, t, th = _binary_roc_compute((preds[:, label], target[:, label], valid[:, label]), None)
+        fprs.append(f)
+        tprs.append(t)
+        thres.append(th)
+    return fprs, tprs, thres
+
+
+def multilabel_roc(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Union[int, Sequence[float], Tensor, None] = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+):
+    """Per-label ROC curves."""
+    if validate_args:
+        _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, valid, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, valid, num_labels, thresholds)
+    return _multilabel_roc_compute(state, num_labels, thresholds, ignore_index)
+
+
 def roc(
     preds: Tensor,
     target: Tensor,
@@ -161,4 +225,8 @@ def roc(
         if not isinstance(num_classes, int):
             raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
         return multiclass_roc(preds, target, num_classes, thresholds, average, ignore_index, validate_args)
-    raise _multilabel_not_ported("roc")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_roc(preds, target, num_labels, thresholds, ignore_index, validate_args)
+    raise ValueError(f"Not handled value: {task}")

@@ -1,4 +1,4 @@
-"""Stat-scores core: tp/fp/tn/fn counting for binary and multiclass tasks.
+"""Stat-scores core: tp/fp/tn/fn counting for binary, multiclass and multilabel tasks.
 
 Counterpart of ``torchmetrics_tpu/functional/classification/stat_scores.py``, with the
 same decomposition (``_arg_validation`` → ``_tensor_validation`` → ``_format`` →
@@ -11,7 +11,8 @@ same decomposition (``_arg_validation`` → ``_tensor_validation`` → ``_format
 
 ``ignore_index`` removal is a validity mask, as in the JAX package. Value checks run
 eagerly whenever ``validate_args`` is set (the JAX package skips them under jit).
-All counting in int32. Multilabel comes with a later slice.
+Multilabel counts are plain sums over the thresholded ``[N, L, X]`` inputs, as in
+the JAX package. All counting in int32.
 """
 
 from __future__ import annotations
@@ -337,11 +338,126 @@ def multiclass_stat_scores(
     return _multiclass_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
 
 
+# ------------------------------------------------------------------------ multilabel
+
+
+def _multilabel_stat_scores_arg_validation(
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    if not (isinstance(threshold, float) and (0 <= threshold <= 1)):
+        raise ValueError(f"Expected argument `threshold` to be a float, but got {threshold}.")
+    allowed_average = ("micro", "macro", "weighted", "none", None)
+    if average not in allowed_average:
+        raise ValueError(f"Expected argument `average` to be one of {allowed_average}, but got {average}")
+    allowed_multidim_average = ("global", "samplewise")
+    if multidim_average not in allowed_multidim_average:
+        raise ValueError(
+            f"Expected argument `multidim_average` to be one of {allowed_multidim_average}, but got {multidim_average}"
+        )
+    if ignore_index is not None and not isinstance(ignore_index, int):
+        raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
+
+
+def _multilabel_stat_scores_tensor_validation(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+) -> None:
+    if preds.shape != target.shape:
+        raise ValueError(
+            "The `preds` and `target` should have the same shape,"
+            f" got `preds` with shape={tuple(preds.shape)} and `target` with shape={tuple(target.shape)}."
+        )
+    if preds.ndim < 2 or preds.shape[1] != num_labels:
+        raise ValueError(
+            "Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels"
+        )
+    if multidim_average != "global" and preds.ndim < 3:
+        raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
+    if _is_traced(preds, target):
+        return
+    unique_values = _unique_values(target)
+    allowed = {0, 1} if ignore_index is None else {0, 1, ignore_index}
+    if not unique_values.issubset(allowed):
+        raise RuntimeError(
+            f"Detected the following values in `target`: {sorted(unique_values)} but expected only"
+            f" the following values {sorted(allowed)}."
+        )
+
+
+def _multilabel_stat_scores_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Returns int ``preds``/``target`` of shape [N, L, X] plus a validity mask [N, L, X]."""
+    if preds.is_floating_point():
+        preds = (_maybe_apply_sigmoid(preds) > threshold).to(torch.int32)
+    else:
+        preds = preds.to(torch.int32)
+    preds = preds.reshape(preds.shape[0], num_labels, -1)
+    target = target.reshape(target.shape[0], num_labels, -1)
+    valid = torch.ones_like(target, dtype=torch.bool) if ignore_index is None else target != ignore_index
+    target = torch.where(valid, target, torch.zeros_like(target)).to(torch.int32)
+    return preds, target, valid
+
+
+def _multilabel_stat_scores_update(
+    preds: Tensor,
+    target: Tensor,
+    valid: Tensor,
+    multidim_average: str = "global",
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Per-label tp/fp/tn/fn: [L] (global) or [N, L] (samplewise)."""
+    sum_dims = (0, 2) if multidim_average == "global" else (2,)
+    p = preds == 1
+    t = target == 1
+    tp = (p & t & valid).sum(dim=sum_dims, dtype=torch.int32)
+    fn = (~p & t & valid).sum(dim=sum_dims, dtype=torch.int32)
+    fp = (p & ~t & valid).sum(dim=sum_dims, dtype=torch.int32)
+    tn = (~p & ~t & valid).sum(dim=sum_dims, dtype=torch.int32)
+    return tp, fp, tn, fn
+
+
+def _multilabel_stat_scores_compute(
+    tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor, average: Optional[str] = "macro", multidim_average: str = "global"
+) -> Tensor:
+    res = torch.stack([tp, fp, tn, fn, tp + fn], dim=-1)
+    if average == "micro":
+        return res.sum(dim=-2, dtype=torch.int32) if res.ndim > 1 else res
+    return res
+
+
+def multilabel_stat_scores(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """[tp, fp, tn, fn, support] for multilabel classification."""
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target, valid = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    tp, fp, tn, fn = _multilabel_stat_scores_update(preds, target, valid, multidim_average)
+    return _multilabel_stat_scores_compute(tp, fp, tn, fn, average, multidim_average)
+
+
 # -------------------------------------------------------------------------- dispatch
-
-
-def _multilabel_not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(f"`{name}` for task='multilabel' is not ported yet: it comes with the multilabel slice.")
 
 
 def stat_scores(
@@ -369,4 +485,10 @@ def stat_scores(
         return multiclass_stat_scores(
             preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
         )
-    raise _multilabel_not_ported("stat_scores")
+    if task == ClassificationTask.MULTILABEL:
+        if not isinstance(num_labels, int):
+            raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+        return multilabel_stat_scores(
+            preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+        )
+    raise ValueError(f"Not handled value: {task}")

@@ -106,15 +106,56 @@ def _flexible_bincount(x: Tensor) -> Tensor:
     return _bincount(x, minlength=int(x.max()) + 1)[unique_ids]
 
 
+def _sort_key(x: Tensor) -> Tensor:
+    """Integer keys that order floats as XLA's sort comparator does: ``-0.0`` as
+    ``0.0``, every NaN as one NaN after ``+inf``. The bits of a non-negative float order
+    as integers; a negative float's are flipped below zero."""
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}[x.dtype]
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    key = x.view(bits)
+    return torch.where(key < 0, key ^ torch.iinfo(bits).max, key)
+
+
+def searchsorted_right(xp: Tensor, x: Tensor) -> Tensor:
+    """int32 ``jnp.searchsorted(xp, x, side="right")`` on any 1-D ``xp``, sorted or not.
+
+    JAX searches by a bisection of fixed depth: from ``low = 0, high = n`` it runs
+    ``ceil(log2(n + 1))`` rounds of ``mid = (low + high) // 2``, each going left iff
+    ``x < xp[mid]`` in its sort order, and returns ``high``. On a sorted ``xp`` that is
+    every binary search's answer; on an unsorted one (a precision curve) the answer
+    depends on the path, and ``torch.searchsorted`` takes another. This repeats JAX's
+    path, comparing sort keys: one gather and compare a round, no host sync.
+    """
+    n = xp.shape[0]
+    xp_key, x_key = _sort_key(xp), _sort_key(x)
+    low = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    high = torch.full(x.shape, n, dtype=torch.int32, device=x.device)
+    for _ in range(int(np.ceil(np.log2(n + 1)))):
+        mid = (low + high) >> 1
+        go_left = x_key < xp_key[mid.clamp(0, n - 1)]  # clamped as XLA's gather clamps
+        low = torch.where(go_left, low, mid)
+        high = torch.where(go_left, mid, high)
+    return high
+
+
 def interp(x: Tensor, xp: Tensor, fp: Tensor) -> Tensor:
-    """Linear interpolation on an ascending ``xp``, the arithmetic of ``jnp.interp``."""
-    xp = xp.contiguous()
-    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
-    df = fp[i] - fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    delta = x - xp[i - 1]
+    """``jnp.interp(x, xp, fp)`` bit for bit, on any 1-D ``xp``: JAX's bracket
+    (``searchsorted_right``, also where ``xp`` is not ascending, as a precision curve
+    is not), then its arithmetic, with ``fp[0]`` left of ``xp[0]`` and ``fp[-1]`` right
+    of ``xp[-1]``."""
+    i = torch.clamp(searchsorted_right(xp, x), 1, xp.shape[0] - 1)
+    below = i - 1
+    fp_below, xp_below = fp[below], xp[below]
+    df = fp[i] - fp_below
+    dx = xp[i] - xp_below
+    delta = x - xp_below
     # the threshold under which jnp.interp treats a segment as flat
     dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
-    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    slope = delta / torch.where(dx0, torch.ones_like(dx), dx)
+    # XLA contracts ``fp[i-1] + slope * df`` into one fused multiply-add: the float32
+    # product is exact in float64, so the sum rounds there and then to float32
+    fused = (fp_below.double() + slope.double() * df.double()).to(fp.dtype)
+    f = torch.where(dx0, fp_below, fused)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
