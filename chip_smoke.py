@@ -105,7 +105,27 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    and einsums, in JAX too). Then ``MulticlassPrecisionRecallCurve(1000,
    average="macro", thresholds=200)`` on the first 5,000 ImageNet rows, card against
    CPU: the mean precision and the thresholds bitwise, the mean recall within 1e-6.
-11. ``collection_sync``: two ranks in one gloo world on the one card
+11. ``family_eval``: the rest of the classification family on three loops at their own
+   widths. CTR (``binary_data``, batch 2^18, 1% ignored): specificity, Hamming
+   distance, hinge loss, recall at precision 0.5, precision at recall 0.5, sensitivity
+   at specificity 0.9, specificity at sensitivity 0.9 and the ROC at 1000 thresholds,
+   and beside them a fairness audit (``BinaryGroupStatRates(8)``, ``BinaryFairness(8)``)
+   over 8 seeded user segments whose shares fall as 1 / (g + 1). ImageNet (50,000 x
+   1000, batch 500): macro specificity and Hamming, hinge loss in both multiclass
+   modes, recall at precision 0.5 and specificity at sensitivity 0.5 at 100
+   thresholds, the micro ROC at 200 and micro Dice. MS-COCO (``multilabel_data``,
+   batch 256): Hamming loss, subset accuracy, macro specificity, coverage error, LRAP,
+   ranking loss, recall at precision 0.5 and the ROC at 200 thresholds. Each loop runs
+   metric by metric over all its batches, its first batches (CTR 2, ImageNet 10,
+   MS-COCO 40) held against the CPU (integer states equal, floats within FLOAT_ATOL
+   plus 1e-6 of the CPU's value, the fixed points' thresholds bitwise); as one
+   MetricCollection, which must form JAX's compute groups (CTR 1 / 2 / 5, ImageNet and
+   MS-COCO 1 / 1 / 1 / 1 / 2 / 2), the fairness pair updated beside it; and through
+   ``MetricPipeline(fuse=8)``, whose states must be bitwise the grouped loop's with one
+   replay a chunk and no capture in the loop. It prints µs per step, K1/K2/K4 launches
+   per step and a profile's busy share of each way. It fails unless CTR launches K2
+   and K4 (one K4 launch per fairness update, no K3) and ImageNet K1 and K2.
+12. ``collection_sync``: two ranks in one gloo world on the one card
    (``torch.multiprocessing`` spawn, a timeout on the rendezvous and on each
    collective, one on the whole world). Each rank makes the full seeded data, updates
    a grouped and an ungrouped collection with every other batch on ``cuda:0`` and
@@ -116,17 +136,17 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    (``sync_state`` of the leaders' states). Both ranks' synced values and states must equal the single-process
    collection's over all the data (integers exactly, floats within the
    classification tolerance); a rank that fails or hangs fails the run.
-12. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
+13. ``retrieval_grouping``: ``_flexible_bincount`` over the query ids of a top-1000
    reranking evaluation at MS MARCO passage dev-small's size, 6,980 queries x 1000
    candidates (6.98 M int32 ids) in a seeded order, through the bincount kernel.
-13. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+14. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-14. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+15. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
@@ -177,6 +197,11 @@ builds the kernels and prints only the ``mux_eval`` phase's line (its checks inc
     python3 chip_smoke.py --multilabel-eval
 
 builds the kernels and prints only the ``multilabel_eval`` phase's line (its checks
+included).
+
+    python3 chip_smoke.py --family-eval
+
+builds the kernels and prints only the ``family_eval`` phase's line (its checks
 included).
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
@@ -655,12 +680,15 @@ def query_ids(queries: int = 6980, candidates: int = 1000, seed: int = 9, device
 def bincount_case(n: int, c: int, seed: int, ids: str = "random", dtype=None):
     """Indices for the bincount kernel, int32 unless ``dtype`` is given: "queries", the
     query ids of a reranking run (C queries, N / C candidates each) in a seeded order;
+    "segments", the fairness update's bins of N CTR scores over (C - 1) / 4 segments;
     "grouped", the same ids grouped by query, as retrieval users pass them (runs of
     N / C equal ids); "random", uniform in [0, C)."""
     import torch
 
     if ids == "queries":
         x = query_ids(c, n // c, seed)
+    elif ids == "segments":
+        x = segment_cell_ids(n, (c - 1) // 4, seed)
     elif ids == "grouped":
         x = torch.arange(c, device="cuda", dtype=torch.int32).repeat_interleave(n // c)
     else:
@@ -2387,6 +2415,290 @@ def multilabel_eval_phase() -> dict:
     }
 
 
+# ------------------------------------------------------------------ family_eval
+
+# the CTR loop's fairness audit across user segments: segment g takes a share of the
+# impressions proportional to 1 / (g + 1)
+FAMILY_SEGMENTS = 8
+_CTR_KW = {"validate_args": False, "ignore_index": -1}
+_KW = {"validate_args": False}
+# each loop's metrics: name -> (class of the classification module, positional args, kwargs)
+FAMILY_SPECS = {
+    "ctr": {
+        "specificity": ("BinarySpecificity", (), _CTR_KW),
+        "hamming": ("BinaryHammingDistance", (), _CTR_KW),
+        "hinge": ("BinaryHingeLoss", (), _CTR_KW),
+        "recall_at_precision_50_t1000": ("BinaryRecallAtFixedPrecision", (0.5,), {**_CTR_KW, "thresholds": 1000}),
+        "precision_at_recall_50_t1000": ("BinaryPrecisionAtFixedRecall", (0.5,), {**_CTR_KW, "thresholds": 1000}),
+        "sensitivity_at_specificity_90_t1000": ("BinarySensitivityAtSpecificity", (0.9,),
+                                                {**_CTR_KW, "thresholds": 1000}),
+        "specificity_at_sensitivity_90_t1000": ("BinarySpecificityAtSensitivity", (0.9,),
+                                                {**_CTR_KW, "thresholds": 1000}),
+        "roc_t1000": ("BinaryROC", (), {**_CTR_KW, "thresholds": 1000}),
+    },
+    "imagenet": {
+        "specificity_macro": ("MulticlassSpecificity", (1000,), {**_KW, "average": "macro"}),
+        "hamming_macro": ("MulticlassHammingDistance", (1000,), {**_KW, "average": "macro"}),
+        "hinge_crammer_singer": ("MulticlassHingeLoss", (1000,), _KW),
+        "hinge_one_vs_all": ("MulticlassHingeLoss", (1000,), {**_KW, "multiclass_mode": "one-vs-all"}),
+        "recall_at_precision_50_t100": ("MulticlassRecallAtFixedPrecision", (1000, 0.5), {**_KW, "thresholds": 100}),
+        "specificity_at_sensitivity_50_t100": ("MulticlassSpecificityAtSensitivity", (1000, 0.5),
+                                               {**_KW, "thresholds": 100}),
+        "roc_micro_t200": ("MulticlassROC", (1000,), {**_KW, "average": "micro", "thresholds": 200}),
+        "dice_micro": ("Dice", (), {"num_classes": 1000, "average": "micro"}),
+    },
+    "coco": {
+        "hamming": ("MultilabelHammingDistance", (MULTILABEL_LABELS,), _KW),
+        "exact_match": ("MultilabelExactMatch", (MULTILABEL_LABELS,), _KW),
+        "specificity_macro": ("MultilabelSpecificity", (MULTILABEL_LABELS,), {**_KW, "average": "macro"}),
+        "coverage_error": ("MultilabelCoverageError", (MULTILABEL_LABELS,), _KW),
+        "ranking_average_precision": ("MultilabelRankingAveragePrecision", (MULTILABEL_LABELS,), _KW),
+        "ranking_loss": ("MultilabelRankingLoss", (MULTILABEL_LABELS,), _KW),
+        "recall_at_precision_50_t200": ("MultilabelRecallAtFixedPrecision", (MULTILABEL_LABELS, 0.5),
+                                        {**_KW, "thresholds": MULTILABEL_THRESHOLDS}),
+        "roc_t200": ("MultilabelROC", (MULTILABEL_LABELS,), {**_KW, "thresholds": MULTILABEL_THRESHOLDS}),
+    },
+}
+# the CTR loop's fairness metrics, whose update takes the segment ids as well: beside
+# the collection, not in it
+FAMILY_FAIRNESS = {
+    "group_stat_rates": ("BinaryGroupStatRates", (FAMILY_SEGMENTS,), _CTR_KW),
+    "fairness": ("BinaryFairness", (FAMILY_SEGMENTS,), {**_CTR_KW, "task": "all"}),
+}
+# the compute groups JAX's MetricCollection forms from each loop's metrics
+FAMILY_GROUP_SIZES = {"ctr": [1, 2, 5], "imagenet": [1, 1, 1, 1, 2, 2], "coco": [1, 1, 1, 1, 2, 2]}
+# (data, batch, batches the CPU runs, profiled steps, kernels the loop must launch): the
+# CPU's binned curve at 1000 thresholds takes ~1.2 s a CTR batch and metric
+FAMILY_LOOPS = {
+    "ctr": (binary_data, 1 << 18, 2, 4, ("binned_curve_counts", "bincount")),
+    "imagenet": (imagenet_data, 500, 10, 10, ("confusion_matrix", "binned_curve_counts")),
+    "coco": (multilabel_data, MULTILABEL_BATCH, 40, 16, ()),
+}
+FAMILY_KERNELS = ("confusion_matrix", "binned_curve_counts", "weighted_bincount", "bincount")
+# float states against the CPU, on top of FLOAT_ATOL: the hinge, ranking and Dice sums
+# add up to 4M terms in another order
+FAMILY_RTOL = 1e-6
+
+
+def family_metrics(kind: str, device: str | None = None, classes=None, fairness: bool = False) -> dict:
+    """The metrics of one ``family_eval`` loop (with ``fairness``, the CTR loop's two
+    fairness metrics), built from ``classes``, the port's classification module unless
+    another module with the same class names is given, on ``device`` unless it is None."""
+    if classes is None:
+        from torchmetrics_tpu_torch import classification as classes
+    extra = {} if device is None else {"device": device}
+    specs = FAMILY_FAIRNESS if fairness else FAMILY_SPECS[kind]
+    return {name: getattr(classes, cls)(*args, **kw, **extra) for name, (cls, args, kw) in specs.items()}
+
+
+def segment_ids(n: int = 1 << 22, segments: int = FAMILY_SEGMENTS, seed: int = 2, device: str = "cuda"):
+    """Seeded user-segment ids of the CTR loop's fairness audit, int32 in [0, segments):
+    segment g takes a share of the impressions proportional to 1 / (g + 1)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    share = 1.0 / torch.arange(1, segments + 1, device=device, dtype=torch.float64)
+    edges = torch.cumsum(share, 0) / share.sum()
+    u = torch.rand(n, generator=g, device=device, dtype=torch.float64)
+    return torch.searchsorted(edges, u).clamp_max(segments - 1).to(torch.int32)
+
+
+def segment_cell_ids(n: int, segments: int, seed: int, device: str = "cuda"):
+    """The bincount kernel's input in the fairness update (``_group_cell_ids``) for n
+    seeded CTR scores, 1% ignored, over ``segment_ids``."""
+    from torchmetrics_tpu_torch.functional.classification.group_fairness import _group_cell_ids
+    from torchmetrics_tpu_torch.functional.classification.stat_scores import _binary_stat_scores_format
+
+    preds, target = binary_data(n, seed, device)
+    preds, target, valid = _binary_stat_scores_format(preds, target, 0.5, -1)
+    return _group_cell_ids(preds, target, segment_ids(n, segments, seed + 1, device), valid, segments)
+
+
+def _family_tolerance(where: str):
+    return FLOAT_ATOL, FAMILY_RTOL
+
+
+def family_run(kind: str, device: str, batches: list, segments: list | None, variant: str) -> dict:
+    """One pass of a ``family_eval`` loop over ``batches`` with fresh metrics: ``metric``
+    updates each metric in turn, ``eager`` the loop's MetricCollection, ``fuse_8`` a
+    MetricPipeline(fuse=8) over it, captured by its warmup before the clock starts. With
+    ``segments`` (one tensor a batch) the fairness metrics take each batch beside them,
+    eagerly. Launch counts are zeroed just before the pass and read just after; the clock
+    covers the pass and ``compute`` and ends in a synchronise."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.ops import kernels
+
+    metrics = family_metrics(kind, device)
+    fair = {} if segments is None else family_metrics(kind, device, fairness=True)
+    col = None if variant == "metric" else MetricCollection(metrics)
+    pipe = manifest = None
+    if variant == "fuse_8":
+        pipe = MetricPipeline(col, PipelineConfig(fuse=PIPELINE_FUSE))
+        manifest = pipe.warmup(*batches[0])
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if pipe is not None:
+        pipe.run(batches)
+    for i, (p, t) in enumerate(batches):
+        if variant == "metric":
+            for m in metrics.values():
+                m.update(p, t)
+        elif variant == "eager":
+            col.update(p, t)
+        for m in fair.values():
+            m.update(p, t, segments[i])
+    values = {name: m.compute() for name, m in metrics.items()} if col is None else dict(col.compute())
+    values.update({name: m.compute() for name, m in fair.items()})
+    if cuda:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    states = ({name: m.state_dict(persistent_only=False) for name, m in metrics.items()} if col is None
+              else collection_states(col))
+    states.update({name: m.state_dict(persistent_only=False) for name, m in fair.items()})
+    out = {"seconds": seconds, "launches": dict(kernels.LAUNCHES), "values": to_cpu(values), "states": to_cpu(states)}
+    if pipe is not None:
+        info = pipe.cache_info()
+        out.update({"replays": sum(i["replays"] for i in info), "misses_in_loop": sum(i["misses"] for i in info),
+                    "chunks_replayed": pipe.report().chunks_replayed, "variants": manifest["variants"],
+                    "capture_s": manifest["total_compile_seconds"]})
+    return out
+
+
+def family_loop(kind: str) -> dict:
+    """One ``family_eval`` loop three ways (see ``family_eval_phase``)."""
+    import functools
+
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+
+    data_fn, batch, cpu_batches, profile_steps, required = FAMILY_LOOPS[kind]
+    preds, target = data_fn()
+    batches = batches_of(preds, target, batch)
+    full = preds.shape[0] // batch
+    segments = None
+    if kind == "ctr":
+        ids = segment_ids(preds.shape[0])
+        segments = [ids[i * batch:(i + 1) * batch] for i in range(len(batches))]
+
+    def check_launches(run: dict, where: str, steps: int) -> None:
+        for kernel in required:
+            if run["launches"][kernel] <= 0:
+                raise AssertionError(f"family_eval {kind} {where}: kernel {kernel} was never launched")
+        if kind == "ctr":
+            # one bincount launch per fairness update, none through the weighted bincount
+            if run["launches"]["bincount"] != len(FAMILY_FAIRNESS) * steps or run["launches"]["weighted_bincount"]:
+                raise AssertionError(f"family_eval ctr {where}: the fairness counts took {run['launches']}")
+
+    def head(seq: list | None, n: int, device: str = "cuda") -> list | None:
+        return None if seq is None else to_cpu(seq[:n]) if device == "cpu" else seq[:n]
+
+    # (1) metric by metric: the card's first batches against the CPU's, then all of them timed
+    card = family_run(kind, "cuda", head(batches, cpu_batches), head(segments, cpu_batches), "metric")
+    t0 = time.perf_counter()
+    cpu = family_run(kind, "cpu", head(batches, cpu_batches, "cpu"), head(segments, cpu_batches, "cpu"), "metric")
+    cpu_seconds = time.perf_counter() - t0
+    state_gap = compare(card["states"], cpu["states"], f"{kind}.state", _family_tolerance)
+    value_gap = compare(card["values"], cpu["values"], f"{kind}.value", _family_tolerance)
+    for name, value in card["values"].items():
+        if "_at_" in name and not bitwise_equal(value[1], cpu["values"][name][1]):
+            raise AssertionError(f"family_eval {kind}: the thresholds of {name} differ between the card and the CPU")
+    timed = family_run(kind, "cuda", batches, segments, "metric")
+    check_launches(timed, "metric by metric", len(batches))
+    for leaf in state_leaves(timed["values"]):
+        if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"family_eval {kind}: a value is not finite")
+    launches = dict(timed["launches"])
+
+    # (2) grouped and (3) fused over the full batches
+    groups = MetricCollection(family_metrics(kind, "cuda")).compute_groups
+    sizes = sorted(len(g) for g in groups.values())
+    if sizes != FAMILY_GROUP_SIZES[kind]:
+        raise AssertionError(f"family_eval {kind}: the collection formed groups {list(groups.values())}, not"
+                             f" sizes {FAMILY_GROUP_SIZES[kind]}")
+    runs, us = {}, {"eager": [], "fuse_8": []}
+    for variant in ("eager", "fuse_8", "fuse_8", "eager"):
+        run = family_run(kind, "cuda", head(batches, full), head(segments, full), variant)
+        check_launches(run, variant, full)
+        for name, n in run["launches"].items():
+            launches[name] += n
+        us[variant].append(run["seconds"] / full * 1e6)
+        runs.setdefault(variant, run)
+        release_graphs()
+    grouped, fused = runs["eager"], runs["fuse_8"]
+    for m in grouped["states"]:
+        if not bitwise_equal(state_leaves(fused["states"][m]), state_leaves(grouped["states"][m])):
+            raise AssertionError(f"family_eval {kind}: the fused state of {m} is not bitwise the grouped eager loop's")
+    chunks = -(-full // PIPELINE_FUSE)
+    if fused["replays"] != chunks or fused["misses_in_loop"] or fused["chunks_replayed"]:
+        raise AssertionError(f"family_eval {kind} fused: {fused['replays']} replays, {fused['misses_in_loop']}"
+                             f" captures in the loop for {chunks} chunks")
+    fused_value_gap = compare(fused["values"], grouped["values"], f"{kind}.fused.value")
+
+    # profiles after every timing, of the metrics without the fairness pair
+    profile = profile_loop(family_metrics(kind, "cuda"), preds, target, batch, profile_steps)
+    metrics_fn = functools.partial(family_metrics, kind)
+    profiles = {v: profile_pipeline(metrics_fn, batches[:min(full, 2 * PIPELINE_FUSE)], v) for v in ("eager", "fuse_8")}
+
+    def per_step(run: dict, steps: int) -> dict:
+        return {k: run["launches"][k] / steps for k in FAMILY_KERNELS}
+
+    summary = {}
+    for name, value in timed["values"].items():
+        if isinstance(value, dict):
+            summary[name] = {k: v.tolist() for k, v in value.items()}
+        elif isinstance(value, tuple) and "_at_" in name:
+            summary[name] = {"value": value[0].tolist() if value[0].numel() <= 4 else float(value[0].mean()),
+                             "threshold": value[1].tolist() if value[1].numel() <= 4 else float(value[1].mean())}
+        elif isinstance(value, tuple):
+            summary[name] = {"points": int(value[0].numel())}
+        else:
+            summary[name] = float(value) if value.numel() == 1 else {"shape": list(value.shape),
+                                                                      "mean": float(value.mean())}
+    return {
+        "samples": int(preds.shape[0]), "batch": batch, "steps": len(batches), "values": summary,
+        "metric_by_metric": {"us_per_step": timed["seconds"] / len(batches) * 1e6,
+                             "launches_per_step": per_step(timed, len(batches)), "cpu_compared_steps": cpu_batches,
+                             "cpu_wall_s": cpu_seconds, "max_state_float_gap": state_gap,
+                             "max_value_float_gap": value_gap, "profile": profile},
+        "grouped": {"steps": full, "groups": [list(g) for g in groups.values()], "us_per_step": us["eager"],
+                    "launches_per_step": per_step(grouped, full), "profile": profiles["eager"]},
+        "fused": {"fuse": PIPELINE_FUSE, "steps": full, "us_per_step": us["fuse_8"],
+                  "launches_per_step": per_step(fused, full), "replays_per_batch": fused["replays"] / full,
+                  "capture_s": fused["capture_s"], "captured_variants": fused["variants"], "bitwise_states": True,
+                  "max_value_float_gap": fused_value_gap, "profile": profiles["fuse_8"]},
+        "launches": launches,
+    }
+
+
+def family_eval_phase() -> dict:
+    """The rest of the classification family on three eval loops at their own widths:
+    CTR (2^22 scores, batch 2^18, 1% ignored; specificity, Hamming, hinge, the four
+    fixed operating points and ROC at 1000 thresholds, and a fairness audit over 8 user
+    segments), ImageNet (50,000 x 1000, batch 500; macro specificity and Hamming, hinge
+    in both modes, recall at fixed precision and specificity at sensitivity at 100
+    thresholds, the micro ROC at 200, micro Dice) and MS-COCO multi-label (40,504 x 80,
+    batch 256; Hamming loss, subset accuracy, macro specificity, coverage, LRAP, ranking
+    loss, recall at fixed precision and ROC at 200 thresholds). Each loop runs (1)
+    metric by metric over all its batches, its first batches held against the CPU
+    (integer states equal, floats within FLOAT_ATOL plus FAMILY_RTOL of the CPU's, the
+    fixed points' thresholds bitwise); (2) as one MetricCollection, which must form
+    JAX's compute groups, the fairness metrics beside it; (3) through
+    MetricPipeline(fuse=8), whose states must be bitwise the grouped loop's with one
+    replay a chunk and no capture in the loop. CTR must launch K2 and K4 (exactly one
+    K4 launch per fairness update, no K3), ImageNet K1 and K2. Profiles come after
+    every timing."""
+    loops = {kind: family_loop(kind) for kind in FAMILY_LOOPS}
+    launches = {k: sum(loop["launches"][k] for loop in loops.values()) for k in loops["ctr"]["launches"]}
+    return {"phase": "family_eval", **loops, "launches": launches}
+
+
 def free_port() -> int:
     import socket
 
@@ -2810,10 +3122,12 @@ CURVE_SHAPES = [(500 * 1000, 200, False, True, 4), (1 << 18, 1000, False, True, 
 
 
 # K4's shapes (N, C, ids, dtype, main path): the retrieval grouping's 6.98 M query ids
-# (shuffled as in its phase; as int64; grouped by query), and four stress shapes from a
-# per-lane copy (C = 100) to an output beyond shared memory (C = 2^20)
+# (shuffled as in its phase; as int64; grouped by query), the CTR step's fairness
+# update (8 segments: 33 bins), and four stress shapes from a per-lane copy (C = 100) to
+# an output beyond shared memory (C = 2^20)
 BINCOUNT_SHAPES = [(6980 * 1000, 6980, "queries", "int32", True), (6980 * 1000, 6980, "queries", "int64", False),
-                   (6980 * 1000, 6980, "grouped", "int32", False)] + [
+                   (6980 * 1000, 6980, "grouped", "int32", False),
+                   (1 << 18, 4 * FAMILY_SEGMENTS + 1, "segments", "int32", True)] + [
     (1 << 20, c, "random", "int32", False) for c in (100, 8192, 1 << 16, 1 << 20)]
 
 
@@ -2961,6 +3275,11 @@ def main() -> int:
         emit({**multilabel_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
               "phase_wall_s": time.perf_counter() - t0})
         return 0
+    if "--family-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**family_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
     if "--mux-eval" in sys.argv[1:]:
         t0 = time.perf_counter()
         emit({**mux_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -3034,6 +3353,10 @@ def main() -> int:
     multilabel = multilabel_eval_phase()
     phases.append(multilabel)
     emit({**multilabel, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    family = family_eval_phase()
+    phases.append(family)
+    emit({**family, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     sync = collection_sync_phase(reference)
     phases.append(sync)

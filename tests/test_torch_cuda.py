@@ -1706,3 +1706,106 @@ def test_multilabel_value_checks_skip_in_a_capture_and_run_eagerly(card, monkeyp
             assert torch.equal(jitted.state_dict(persistent_only=False)[key], want), key
         with pytest.raises(RuntimeError, match="Detected the following values in `target`"):
             eager.update(batches[0][0], batches[0][1] * 2)
+
+
+# ------------------------------------------------------- the rest of the family
+
+
+def _fairness_case(n: int, groups: int, seed: int, invalid: float = 0.1):
+    g = torch.Generator().manual_seed(seed)
+    preds = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    target = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    segments = torch.randint(0, groups, (n,), generator=g, dtype=torch.int32)
+    valid = torch.rand(n, generator=g) >= invalid
+    return preds, target, segments, valid
+
+
+@pytest.mark.parametrize("n, groups, invalid", [(1 << 18, 8, 0.01), (4096, 1000, 0.1), (100_000, 1000, 0.5),
+                                                (4096, 8, 1.0), (1, 2, 0.0)])
+def test_fairness_counts_through_the_bincount_kernel_equal_its_plain_version(card, n, groups, invalid):
+    """The per-group counts on the card: one bincount launch of 4 * G + 1 bins, equal to
+    the same update on the CPU (the plain version), also for a batch whose samples all
+    land in the spare bin (invalid = 1) and for G = 1000."""
+    from torchmetrics_tpu_torch.functional.classification import group_fairness as gf
+
+    args = _fairness_case(n, groups, seed=groups + n, invalid=invalid)
+    want = gf._binary_groups_stat_scores_update(*args, groups)
+    kernels.reset_launch_counts()
+    got = gf._binary_groups_stat_scores_update(*(a.to(card) for a in args), groups)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["bincount"], kernels.LAUNCHES["weighted_bincount"]) == (1, 0)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b)
+    assert int(sum(c.sum() for c in want)) == int(args[3].sum())
+
+
+def test_fairness_metrics_on_the_card_equal_the_cpu(card):
+    batches = [_fairness_case(1 << 14, 8, seed=s) for s in range(3)]
+    for make in (lambda d: tc.BinaryGroupStatRates(8, device=d), lambda d: tc.BinaryFairness(8, device=d)):
+        on_card, on_cpu = make(card), make("cpu")
+        kernels.reset_launch_counts()
+        for preds, target, segments, _ in batches:
+            on_card.update(preds.to(card), target.to(card), segments.to(card))
+            on_cpu.update(preds, target, segments)
+        assert kernels.LAUNCHES["bincount"] == len(batches)
+        for key, want in on_cpu.state_dict(persistent_only=False).items():
+            assert torch.equal(on_card.state_dict(persistent_only=False)[key].cpu(), want), key
+        got, want = on_card.compute(), on_cpu.compute()
+        assert list(got) == list(want)
+        for key in want:
+            assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def _family_set(kind: str, device) -> dict:
+    """``chip_smoke.py``'s family_eval metrics of one loop (full widths)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke.family_metrics(kind, device)
+
+
+def _family_batches(kind: str, steps: int):
+    g = torch.Generator().manual_seed(31)
+    out = []
+    for _ in range(steps):
+        if kind == "ctr":
+            target = torch.randint(0, 2, (4096,), generator=g)
+            preds = torch.sigmoid(torch.randn(4096, generator=g) + 1.2 * target - 0.6)
+            target = torch.where(torch.rand(4096, generator=g) < 0.01, -1, target)
+        elif kind == "imagenet":
+            target = torch.randint(0, 1000, (64,), generator=g)
+            preds = torch.softmax(torch.randn(64, 1000, generator=g) + 3.0 * torch.eye(1000)[target], dim=1)
+        else:
+            target = (torch.rand(64, 80, generator=g) < 0.04).to(torch.int32)
+            preds = torch.sigmoid(torch.randn(64, 80, generator=g) + 3.0 * target - 2.0)
+        out.append((preds, target))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ctr", "imagenet", "coco"])
+def test_a_family_collection_through_fused_chunks_is_bitwise_its_eager_loop(card, kind):
+    """The family_eval collection of each loop through MetricPipeline(fuse=4): a chunk of
+    4 and a padded chunk of 2, every state and value bitwise the eager collection loop's
+    and its launches those of the eager loop (nothing syncs inside the capture)."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+
+    batches = [(p.to(card), t.to(card)) for p, t in _family_batches(kind, 6)]
+    eager, driven = MetricCollection(_family_set(kind, card)), MetricCollection(_family_set(kind, card))
+    kernels.reset_launch_counts()
+    for p, t in batches:
+        eager.update(p, t)
+    eager_launches = dict(kernels.LAUNCHES)
+    pipe = MetricPipeline(driven, PipelineConfig(fuse=4))
+    pipe.warmup(*batches[0])
+    kernels.reset_launch_counts()
+    report = pipe.run(batches)
+    info = pipe.cache_info()
+    assert sum(i["replays"] for i in info) == 2 and not sum(i["misses"] for i in info)
+    assert report.chunks_replayed == 0
+    assert dict(kernels.LAUNCHES) == eager_launches
+    for name in eager.keys(keep_base=True):
+        for key, want in eager[name].state_dict(persistent_only=False).items():
+            _assert_bitwise(driven[name].state_dict(persistent_only=False)[key], want, f"{name}.{key}")
+    got, want = driven.compute(), eager.compute()
+    for name in want:
+        _assert_bitwise(got[name], want[name], name)

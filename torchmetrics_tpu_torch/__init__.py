@@ -10,11 +10,12 @@ It holds the metric runtime, ``MetricCollection`` with static compute groups, an
 cross-process sync on ``torch.distributed`` (``parallel``); the capture cache of CUDA
 graphs (``core/jit.py``), the error policies and fault injection (``robust``), the
 telemetry recorder and batch lineage (``obs``) and the streaming pipeline
-(``engine``, imported on its own); the binary, multiclass and multilabel classification
-metrics: stat scores, accuracy, precision and recall, F-beta/F1, confusion matrix,
-Jaccard index, Matthews correlation, precision-recall curve, average precision, ROC
-(functional) and AUROC, and Cohen's kappa and calibration error (binary and
-multiclass); and the image-restoration metrics:
+(``engine``, imported on its own); the whole classification family of the JAX
+package, binary, multiclass and multilabel: stat scores, accuracy, precision and recall,
+F-beta/F1, specificity, Hamming distance, exact match, confusion matrix, Jaccard index,
+Matthews correlation, Cohen's kappa, calibration error, hinge loss, Dice, group
+fairness, precision-recall and ROC curves, AUROC, average precision, the fixed
+operating points and the label-ranking metrics; and the image-restoration metrics:
 SSIM, MS-SSIM, PSNR, PSNR-B, UQI, sliding-window RMSE and total variation.
 """
 

@@ -1,0 +1,108 @@
+"""Hamming distance module classes.
+
+Counterpart of ``torchmetrics_tpu/classification/hamming.py``: the stat-scores bases
+with a Hamming ``compute``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from torchmetrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+)
+from torchmetrics_tpu_torch.functional.classification._stat_reduce import _hamming_distance_reduce
+from torchmetrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class BinaryHammingDistance(BinaryStatScores):
+    """Binary Hamming distance: fraction of disagreeing labels."""
+
+    is_differentiable = False
+    higher_is_better = False
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    def compute(self) -> Tensor:
+        """Compute Hamming distance from counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _hamming_distance_reduce(tp, fp, tn, fn, average="binary", multidim_average=self.multidim_average)
+
+
+class MulticlassHammingDistance(MulticlassStatScores):
+    """Multiclass Hamming distance."""
+
+    is_differentiable = False
+    higher_is_better = False
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
+
+    def compute(self) -> Tensor:
+        """Compute Hamming distance from per-class counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _hamming_distance_reduce(tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average)
+
+
+class MultilabelHammingDistance(MultilabelStatScores):
+    """Multilabel Hamming distance."""
+
+    is_differentiable = False
+    higher_is_better = False
+    full_state_update: bool = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
+
+    def compute(self) -> Tensor:
+        """Compute Hamming distance from per-label counts."""
+        tp, fp, tn, fn = self._final_state()
+        return _hamming_distance_reduce(
+            tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average, multilabel=True
+        )
+
+
+class HammingDistance(_ClassificationTaskWrapper):
+    """Task-dispatch wrapper for Hamming distance."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ):
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryHammingDistance(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)} was passed.`")
+            return MulticlassHammingDistance(num_classes, top_k, average, **kwargs)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
+            return MultilabelHammingDistance(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Task {task} not supported!")

@@ -1,7 +1,7 @@
 """Final reductions turning tp/fp/tn/fn counts into metric values.
 
-Counterpart of ``torchmetrics_tpu/functional/classification/_stat_reduce.py``, cut to
-the accuracy, precision/recall and F-beta reductions.
+Counterpart of ``torchmetrics_tpu/functional/classification/_stat_reduce.py``: the
+accuracy, precision/recall, F-beta, specificity and Hamming reductions.
 """
 
 from __future__ import annotations
@@ -110,3 +110,46 @@ def _fbeta_reduce(
         return safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
     fbeta_score = safe_divide((1 + beta2) * tp, (1 + beta2) * tp + beta2 * fn + fp, zero_division)
     return _adjust_weights_safe_divide(fbeta_score, average, multilabel, tp, fp, fn)
+
+
+def _specificity_reduce(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+) -> Tensor:
+    if average == "binary":
+        return safe_divide(tn, tn + fp)
+    if average == "micro":
+        tn = _micro_sum(tn, multidim_average)
+        fp = _micro_sum(fp, multidim_average)
+        return safe_divide(tn, tn + fp)
+    specificity_score = safe_divide(tn, tn + fp)
+    return _adjust_weights_safe_divide(specificity_score, average, multilabel, tp, fp, fn)
+
+
+def _hamming_distance_reduce(
+    tp: Tensor,
+    fp: Tensor,
+    tn: Tensor,
+    fn: Tensor,
+    average: Optional[str],
+    multidim_average: str = "global",
+    multilabel: bool = False,
+) -> Tensor:
+    """One minus the accuracy-like agreement of the counts."""
+    if average == "binary":
+        return 1 - safe_divide(tp + tn, tp + tn + fp + fn)
+    if average == "micro":
+        tp = _micro_sum(tp, multidim_average)
+        fn = _micro_sum(fn, multidim_average)
+        if multilabel:
+            fp = _micro_sum(fp, multidim_average)
+            tn = _micro_sum(tn, multidim_average)
+            return 1 - safe_divide(tp + tn, tp + tn + fp + fn)
+        return 1 - safe_divide(tp, tp + fn)
+    score = safe_divide(tp + tn, tp + tn + fp + fn) if multilabel else safe_divide(tp, tp + fn)
+    return 1 - _adjust_weights_safe_divide(score, average, multilabel, tp, fp, fn)

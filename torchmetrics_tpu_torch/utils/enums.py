@@ -41,6 +41,17 @@ class ClassificationTask(EnumStr):
     MULTILABEL = "multilabel"
 
 
+class ClassificationTaskNoBinary(EnumStr):
+    """Task selector for metrics defined for multiclass and multilabel tasks only."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
 class ClassificationTaskNoMultilabel(EnumStr):
     """Task selector for metrics defined for binary and multiclass tasks only."""
 
