@@ -148,6 +148,27 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    warm step inside the loop (profile) beside its main-path shapes timed alone.
 15. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
+16. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+   lineage and the conservation auditor on: both grouped collections as
+   ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
+   batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
+   restored from its bundle and fed 8 more, and a ``TenantMultiplexer`` at W = 8 of
+   the ImageNet collection (one NaN batch quarantined, the noisy tenant's last round
+   shed by admission). It prints each tenant's flow ledger, the violations, an
+   ``audit_stream`` of the bundle stream, every collection's ``memory_footprint()``
+   and ``device_memory_stats()``, the Prometheus page's and the JSONL's robust counters
+   read back, and the Perfetto export's span and flow counts. Meanwhile a spawned
+   process runs ``profile_session`` over 8 eager ImageNet steps, and two spawned gloo
+   ranks on cuda:0 sync the ImageNet collection under the guard: one injected
+   ``raise`` (retried), then an injected hang on a gloo group of their own. Then the
+   host profiler samples an eager, a fused and a mux pass, and the fused loops are
+   timed with every plane off and on, in turns (reported, not gated). It fails unless
+   every ledger balances with no violation, every footprint equals byte for byte the
+   footprint of the same collection built with ``device="cpu"``, the exported
+   counters equal the metrics' and account for every processed batch, the trace holds
+   the metric ranges with every K1 and K2 launch inside one, the retried sync is
+   bitwise the unguarded one after one retry on each rank, and the hung sync degrades
+   on both ranks to their local values with ``aggregate()`` naming the missing rank.
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
 integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
@@ -204,6 +225,11 @@ included).
 builds the kernels and prints only the ``family_eval`` phase's line (its checks
 included).
 
+    python3 chip_smoke.py --obs-eval
+
+builds the kernels and prints only the ``obs_eval`` phase's line (its checks
+included).
+
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
 its operations over the float32 rate of the data sheet (an FMA counting two), both
 counted by the kernel's ``*_cost`` function in ``ops/kernels.py``, which the cost
@@ -212,6 +238,7 @@ ledger adds too.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -3229,6 +3256,672 @@ def kernel_times() -> dict:
             "torch_steps_us": torch_steps_us, "ssim_moments": ssim}
 
 
+# ------------------------------------------------------------------ obs and robust planes
+
+# the phase's data: ImageNet-1k rows (batch 500) and CTR scores (batch 2^18), both grouped
+OBS_IMAGENET_BATCHES = 64
+OBS_CTR_BATCHES = 8
+OBS_RESTORED_BATCHES = 8  # fed to the restored ImageNet session after its bundle
+OBS_NAN_BATCH = 13  # the ImageNet pipeline's update index that gets NaN (quarantined)
+OBS_CHECKPOINT_EVERY = 16
+OBS_MUX_WIDTH = 8
+OBS_MUX_ROUNDS = 4
+OBS_MUX_NAN = (1, 1)  # (tenant, round) whose batch gets one NaN under ``quarantine``
+OBS_MUX_QUOTA = 3  # the noisy tenant's updates a window: its last round is shed
+OBS_MAX_EVENTS = 200_000
+OBS_PROFILE_STEPS = 8
+OBS_PROFILE_RANGES = ("MulticlassAccuracy.update", "MulticlassAUROC.update")
+OBS_SYNC_BATCHES = 8  # ImageNet batches each rank of the degraded-sync world folds (every other one)
+OBS_RETRY_TIMEOUT_S = 20.0
+OBS_HANG_TIMEOUT_S = 2.0
+OBS_HANG_GROUP_TIMEOUT_S = 30  # the hang's own gloo group: its abandoned collectives end by then
+OBS_CHILD_TIMEOUT_S = 240
+OBS_COST_ROUNDS = 5  # rounds of (planes off, sampler alone, planes on) timed in turns
+OBS_COST_CTR_REPEAT = 8  # the CTR stream fed this many times in a timed pass (64 steps)
+
+
+def obs_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "obs")
+
+
+def obs_config() -> dict:
+    """The sizes a spawned child of the phase takes (a child imports this module anew)."""
+    return {"profile_steps": OBS_PROFILE_STEPS, "sync_batches": OBS_SYNC_BATCHES,
+            "retry_timeout_s": OBS_RETRY_TIMEOUT_S, "hang_timeout_s": OBS_HANG_TIMEOUT_S,
+            "hang_group_timeout_s": OBS_HANG_GROUP_TIMEOUT_S, "ranges": OBS_PROFILE_RANGES}
+
+
+def obs_guarded(metrics_fn, device: str, policy: str = "quarantine"):
+    from torchmetrics_tpu_torch import MetricCollection
+
+    col = MetricCollection(metrics_fn(device))
+    for m in col.values(copy_state=False):
+        m.error_policy = policy
+    return col
+
+
+def obs_ledger(report: dict) -> dict:
+    """Each tenant's merged flow ledger, and whether it balances: every fed batch is
+    processed, shed, deferred, quarantined, skipped, in flight or handed off."""
+    fields = ("fed", "processed", "shed", "deferred_pending", "quarantined", "skipped", "in_flight", "handed_off")
+    out = {}
+    for tenant, entry in sorted(report["tenants"].items()):
+        totals = {f: int(entry["totals"][f]) for f in fields}
+        totals["balanced"] = totals["fed"] == sum(totals[f] for f in fields[1:])
+        out[tenant] = totals
+    return out
+
+
+def obs_parse_robust(text: str) -> dict:
+    """{(metric, instance): {counter: value}} from the per-metric ``tm_tpu_robust_*``
+    rows of a Prometheus page."""
+    import re
+
+    row = re.compile(r"^tm_tpu_robust_(\w+?)(?:_total)?\{(.*)\} (\S+)$")
+    out = {}
+    for line in text.splitlines():
+        match = row.match(line)
+        if match is None:
+            continue
+        labels = dict(re.findall(r'(\w+)="([^"]*)"', match.group(2)))
+        if "instance" not in labels:
+            continue  # a trace counter of the robust plane (robust.*), not a metric's row
+        out.setdefault((labels["metric"], int(labels["instance"])), {})[match.group(1)] = float(match.group(3))
+    return out
+
+
+def obs_export_check(pipe, leaders: list, root: str, name: str) -> dict:
+    """The Prometheus page and the JSONL of a pipeline's driven metrics, parsed back: the
+    robust counters equal each metric's own, and every driven metric accounts for every
+    batch the pipeline's report processed."""
+    from torchmetrics_tpu_torch.obs import export
+
+    report = pipe.report()
+    text = export.prometheus_text(metrics=leaders)
+    path = os.path.join(root, f"{name}.jsonl")
+    lines = export.write_jsonl(path, metrics=leaders)
+    with open(path, encoding="utf-8") as fh:
+        rows = [json.loads(line) for line in fh]
+    if len(rows) != lines or rows[0]["type"] != "meta":
+        raise AssertionError(f"obs_eval export {name}: {len(rows)} JSONL rows read back of {lines} written")
+    jsonl = {(r["metric"], r["instance"]): r for r in rows if r["type"] == "robust"}
+    prom = obs_parse_robust(text)
+    counters = ("updates_ok", "updates_skipped", "updates_quarantined", "quarantine_dropped")
+    for index, m in enumerate(leaders):
+        key = (type(m).__name__, index)
+        want = {c: int(getattr(m, c)) for c in counters}
+        got_prom = {c: int(prom[key][c]) for c in counters}
+        got_jsonl = {c: int(jsonl[key][c]) for c in counters}
+        if got_prom != want or got_jsonl != want or bool(prom[key]["sync_degraded"]) != m.sync_degraded:
+            raise AssertionError(f"obs_eval export {name}: {key} exported {got_prom} / {got_jsonl}, holds {want}")
+        if want["updates_ok"] + want["updates_quarantined"] + want["updates_skipped"] != report.processed_batches():
+            raise AssertionError(f"obs_eval export {name}: {key} counts {want}, the pipeline processed"
+                                 f" {report.processed_batches()} batches")
+    return {"prometheus_lines": len(text.splitlines()), "jsonl_lines": lines,
+            "processed_batches": report.processed_batches(),
+            "robust": {f"{k[0]}#{k[1]}": {c: int(v[c]) for c in ("updates_ok", "updates_quarantined")}
+                       for k, v in sorted(prom.items())}}
+
+
+def obs_footprint_twin(card_col, metrics_fn, batches: list, nan_index: int | None = None) -> dict:
+    """The card collection's footprint beside a twin built with ``device="cpu"`` and fed
+    the first batch (and the NaN batch, quarantined, where the card's run had one):
+    equal byte for byte."""
+    import torch
+
+    from torchmetrics_tpu_torch.obs import memory
+
+    twin = obs_guarded(metrics_fn, "cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p, t = batches[0]
+        twin.update(p.cpu(), t.cpu())
+        if nan_index is not None:
+            p, t = batches[nan_index]
+            twin.update(torch.full_like(p.cpu(), float("nan")), t.cpu())
+    card, cpu = card_col.memory_footprint(), memory.footprint(twin)
+    if card != cpu:
+        raise AssertionError(f"obs_eval memory: the card footprint {card['unique_bytes']} B"
+                             f" / {card['total_bytes']} B is not the CPU twin's"
+                             f" {cpu['unique_bytes']} B / {cpu['total_bytes']} B")
+    return {k: card[k] for k in ("total_bytes", "unique_bytes", "device_bytes", "host_bytes", "n_states")}
+
+
+def obs_mux_streams(batches: list, width: int, rounds: int) -> dict:
+    """Tenant j's rows: 256-row slices of the ImageNet batches, distinct per tenant."""
+    rows = [(p[i:i + 256], t[i:i + 256]) for p, t in batches for i in (0, 250)]
+    return {j: [rows[(r * width + j) % len(rows)] for r in range(rounds)] for j in range(width)}
+
+
+def obs_audit_run(data: dict, root: str) -> dict:
+    """Audit, memory, export and Perfetto over the main path with tracing, lineage and the
+    auditor on: both grouped collections as ``MetricPipeline(fuse=8)`` tenant sessions
+    with a checkpoint policy (a NaN ImageNet batch quarantined), the ImageNet session
+    restored from its bundle and fed on, and a ``TenantMultiplexer`` at W = 8 (one NaN
+    batch quarantined, the noisy tenant's last round shed by admission)."""
+    import torch
+
+    from torchmetrics_tpu_torch.engine import (CheckpointPolicy, MetricPipeline, MuxConfig, PipelineConfig,
+                                               TenantMultiplexer, restore_session)
+    from torchmetrics_tpu_torch.obs import audit, lineage, memory, perfetto, scope, trace
+    from torchmetrics_tpu_torch.ops import kernels
+    from torchmetrics_tpu_torch.robust import faults
+
+    device = "cuda"
+    trace.enable(max_events=OBS_MAX_EVENTS)
+    lineage.enable()
+    auditor = audit.ConservationAuditor(cadence_seconds=1e-6)
+    audit.install_auditor(auditor)
+    kernels.reset_launch_counts()
+    out = {"pipelines": {}, "memory": {}, "export": {}}
+    try:
+        sessions = {}
+        for kind, metrics_fn, tenant in (("imagenet", imagenet_metrics, "imagenet"), ("binary", binary_metrics, "ctr")):
+            col = obs_guarded(metrics_fn, device)
+            policy = CheckpointPolicy(directory=os.path.join(root, "stream", tenant), every_batches=OBS_CHECKPOINT_EVERY)
+            pipe = MetricPipeline(col, PipelineConfig(fuse=PIPELINE_FUSE, tenant=tenant, checkpoint=policy))
+            nan = (faults.inject_nan_updates(indices=(OBS_NAN_BATCH,)) if kind == "imagenet"
+                   else contextlib.nullcontext())
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with nan:
+                    report = pipe.run(data[kind])
+            torch.cuda.synchronize()
+            leaders = [col[members[0]] for members in col.compute_groups.values()]
+            quarantined = {m.__class__.__name__: [q["update_index"] for q in m.quarantined_batches] for m in leaders}
+            if kind == "imagenet" and any(v != [OBS_NAN_BATCH] for v in quarantined.values()):
+                raise AssertionError(f"obs_eval: the ImageNet leaders quarantined {quarantined}, not [{OBS_NAN_BATCH}]")
+            out["export"][tenant] = obs_export_check(pipe, leaders, root, tenant)
+            bundle = pipe.checkpoint_now()
+            pipe.close()
+            sessions[kind] = (pipe, col, bundle, policy)
+            out["pipelines"][tenant] = {"report": report.asdict(), "bundle": os.path.basename(bundle)}
+            out["memory"][tenant] = obs_footprint_twin(col, metrics_fn, data[kind],
+                                                       OBS_NAN_BATCH if kind == "imagenet" else None)
+        # the ImageNet session restored from its last bundle and fed on, as a migration would
+        _, _, bundle, policy = sessions["imagenet"]
+        restored, _ = restore_session(obs_guarded(imagenet_metrics, device), bundle,
+                                      checkpoint=CheckpointPolicy(directory=policy.directory,
+                                                                  every_batches=OBS_CHECKPOINT_EVERY))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            restored.run(data["imagenet"][:OBS_RESTORED_BATCHES])
+        restored.close()
+        out["restored"] = {"report": restored.report().asdict()}
+
+        # the multiplexer: W tenants of the grouped ImageNet collection
+        controller = scope.AdmissionController()
+        noisy = f"imagenet-m{OBS_MUX_WIDTH - 1}"
+        controller.set_quota(noisy, scope.TenantQuota(updates_per_window=OBS_MUX_QUOTA, window_seconds=3600.0,
+                                                      over_quota="shed"))
+        mux = TenantMultiplexer(lambda: obs_guarded(imagenet_metrics, device),
+                                MuxConfig(max_width=OBS_MUX_WIDTH, admission=controller))
+        tenants = [f"imagenet-m{j}" for j in range(OBS_MUX_WIDTH)]
+        streams = obs_mux_streams(data["imagenet"], OBS_MUX_WIDTH, OBS_MUX_ROUNDS)
+        bad_tenant, bad_round = OBS_MUX_NAN
+        p, y = streams[bad_tenant][bad_round]
+        p = p.clone()
+        p.view(-1)[0] = float("nan")
+        streams[bad_tenant][bad_round] = (p, y)
+        for t in tenants:
+            mux.adopt(t)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for r in range(OBS_MUX_ROUNDS):
+                for j, t in enumerate(tenants):
+                    mux.feed(t, *streams[j][r])
+            mux.flush()
+        torch.cuda.synchronize()
+        out["launches"] = dict(kernels.LAUNCHES)
+        auditor.tick(now=1.0)
+        auditor.tick(now=2.0)
+        live = obs_ledger(auditor.report())
+        mux_report = mux.close()
+        auditor.tick(now=3.0)
+        report = auditor.report()
+        ledger = obs_ledger(report)
+        out["mux"] = {"report": mux_report.asdict(), "tenants": OBS_MUX_WIDTH, "nan": list(OBS_MUX_NAN),
+                      "shed_tenant": noisy}
+        if ledger[tenants[bad_tenant]]["quarantined"] < 1 or ledger[noisy]["shed"] != 1:
+            raise AssertionError(f"obs_eval: the mux ledger shows {ledger[tenants[bad_tenant]]} for the NaN tenant"
+                                 f" and {ledger[noisy]} for the noisy one")
+        unbalanced = [t for t, row in {**live, **ledger}.items() if not row["balanced"]]
+        if unbalanced or report["violations"]:
+            raise AssertionError(f"obs_eval audit: unbalanced {unbalanced}, violations {report['violations']}")
+        out["audit"] = {"ledger": ledger, "violations": len(report["violations"]), "sessions": report["sessions"],
+                        "approximate": report["approximate"],
+                        "invariants": {row["invariant"]: row["passed"] for row in report["invariants"]}}
+        stream = audit.audit_stream(os.path.join(root, "stream"))
+        if stream["corrupt"] or stream["violations"] or not stream["bundles"]:
+            raise AssertionError(f"obs_eval audit_stream: {stream['bundles']} bundles, corrupt {stream['corrupt']},"
+                                 f" violations {stream['violations']}")
+        out["audit_stream"] = {"bundles": stream["bundles"], "tenants": stream["tenants"]}
+
+        # the multiplexer's state bytes: its tenants, each beside its CPU twin
+        mux_fp = {"total_bytes": 0, "unique_bytes": 0}
+        for j, t in enumerate(tenants):
+            twin = obs_footprint_twin(mux.metric(t), imagenet_metrics, streams[j],
+                                      bad_round if j == bad_tenant else None)
+            for key in mux_fp:
+                mux_fp[key] += twin[key]
+        out["memory"]["mux"] = mux_fp
+        out["memory"]["device_memory_stats"] = memory.device_memory_stats()
+        stats = out["memory"]["device_memory_stats"]
+        if not stats or not all({"bytes_in_use", "peak_bytes_in_use"} <= set(row) for row in stats.values()):
+            raise AssertionError(f"obs_eval: device_memory_stats() gave {out['memory']['device_memory_stats']}")
+        # what one fresh ImageNet collection's states take from the allocator, beside its bytes
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        fresh = obs_guarded(imagenet_metrics, device)
+        torch.cuda.synchronize()
+        fresh_fp = fresh.memory_footprint()
+        out["memory"]["fresh_imagenet"] = {
+            "unique_bytes": fresh_fp["unique_bytes"], "device_bytes": fresh_fp["device_bytes"],
+            "allocator_growth_bytes": torch.cuda.memory_allocated() - before,
+        }
+        del fresh
+
+        # Perfetto: the run's spans, written and read back
+        path = os.path.join(root, "trace.json")
+        events = perfetto.write_trace(path)
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        fed = sum(row["fed"] for row in ledger.values())
+        spans = sum(1 for e in doc["traceEvents"] if e["ph"] == "X")
+        if len(doc["traceEvents"]) != events or not spans or not doc["otherData"]["n_flows"]:
+            raise AssertionError(f"obs_eval perfetto: {events} events written, {len(doc['traceEvents'])} read,"
+                                 f" {spans} spans, {doc['otherData']['n_flows']} flows")
+        out["perfetto"] = {"events": events, "x_events": spans, "flows": doc["otherData"]["n_flows"],
+                           "fed_batches": fed, "flows_per_batch": doc["otherData"]["n_flows"] / fed,
+                           "dropped_events": trace.get_recorder().dropped_events}
+        del mux
+    finally:
+        audit.install_auditor(None)
+        lineage.disable()
+        trace.disable()
+        trace.get_recorder().clear()
+        scope.reset()
+    release_graphs()
+    return out
+
+
+def obs_profile_worker(log_dir: str, cfg: dict, queue) -> None:
+    """The spawned profile: ``profile_session`` over eager ImageNet steps of the grouped
+    collection; the trace must hold the metrics' ``<Class>.update`` ranges, and every K1
+    and K2 launch of those steps inside one of them (the launch's CUDA runtime call by
+    its correlation id, else the kernel inside the range's device span)."""
+    import traceback
+
+    try:
+        import torch
+
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.obs import profile
+        from torchmetrics_tpu_torch.ops import kernels
+
+        torch.cuda.set_device(0)
+        preds, target = imagenet_data(n=cfg["profile_steps"] * 500, device="cuda")
+        col = MetricCollection(imagenet_metrics("cuda"))
+        col.update(preds[:500], target[:500])  # the first use of each kernel, outside the trace
+        col.reset()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with profile.profile_session(log_dir, host=True) as session:
+            for i in range(cfg["profile_steps"]):
+                col.update(preds[i * 500:(i + 1) * 500], target[i * 500:(i + 1) * 500])
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        path = profile.last_trace_path()
+        with open(path, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        queue.put(("profile", {"session": session["device"], "trace_bytes": os.path.getsize(path),
+                               "launches": launches, **obs_trace_ranges(doc, cfg["ranges"]),
+                               "host_samples": session["host"].stats()["samples"]}, None))
+    except BaseException:
+        queue.put(("profile", None, traceback.format_exc()))
+        raise
+
+
+def obs_trace_ranges(doc: dict, required: tuple) -> dict:
+    """The metric ranges of a torch.profiler Chrome trace and the K1/K2 kernels launched
+    inside each."""
+    events = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and str(e.get("name", "")).endswith(".update")]
+    gpu_ranges = [e for e in events if e.get("cat") == "gpu_user_annotation"]
+    runtime = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "cuda_runtime" and corr is not None:
+            runtime[corr] = e
+    names = {"confusion_matrix": DEVICE_KERNEL_NAMES["confusion_matrix"],
+             "binned_curve_counts": DEVICE_KERNEL_NAMES["binned_curve_counts"]}
+    inside = {k: {} for k in names}
+    outside = {k: 0 for k in names}
+    by = {k: 0 for k in ("runtime", "device")}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kernel = next((k for k, part in names.items() if part in e.get("name", "")), None)
+        if kernel is None:
+            continue
+        host = runtime.get((e.get("args") or {}).get("correlation"))
+        if host is not None:
+            owner = next((r for r in ranges if r.get("tid") == host.get("tid")
+                          and r["ts"] <= host["ts"] <= r["ts"] + r["dur"]), None)
+            by["runtime"] += owner is not None
+        else:
+            owner = next((r for r in gpu_ranges if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]), None)
+            by["device"] += owner is not None
+        if owner is None:
+            outside[kernel] += 1
+        else:
+            inside[kernel][owner["name"]] = inside[kernel].get(owner["name"], 0) + 1
+    range_names = sorted({r["name"] for r in ranges})
+    return {"ranges": {n: sum(1 for r in ranges if r["name"] == n) for n in range_names},
+            "kernels_inside": inside, "kernels_outside": outside, "matched_by": by,
+            "missing_ranges": [n for n in required if n not in range_names]}
+
+
+def obs_sync_rank(rank: int, port: int, cfg: dict, queue) -> None:
+    """One rank of the degraded-sync world (two gloo ranks on cuda:0). The grouped
+    ImageNet collection folds every other batch; then (a) with the guard configured and
+    one injected ``raise`` on each rank the synced ``compute`` is bitwise the unguarded
+    one after one retry, and (b) on a gloo group of its own with a short timeout, rank 1's
+    collectives hang (injected): both ranks degrade, every synced metric is flagged, the
+    values equal the local compute, and ``aggregate()`` lists the missing rank. The rank
+    reports, then leaves with ``os._exit``: rank 0's abandoned collective threads must not
+    hold up its exit."""
+    import datetime
+    import io
+    import traceback
+
+    code = 0
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from torchmetrics_tpu_torch import MetricCollection
+        from torchmetrics_tpu_torch.obs import aggregate, trace
+        from torchmetrics_tpu_torch.robust import faults, sync_guard
+
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=120))
+        hang_group = dist.new_group(ranks=[0, 1], backend="gloo",
+                                    timeout=datetime.timedelta(seconds=cfg["hang_group_timeout_s"]))
+        preds, target = imagenet_data(n=cfg["sync_batches"] * 500, device="cuda")
+        col = MetricCollection(imagenet_metrics("cuda"))
+        for start in range(rank * 500, preds.shape[0], 1000):
+            col.update(preds[start:start + 500], target[start:start + 500])
+        members = list(col.values(copy_state=False))
+        for m in members:
+            m.compute_with_cache = False
+            m._to_sync = False
+        local = to_cpu(col.compute())
+        for m in members:
+            m._to_sync = True
+        plain = to_cpu(col.compute())
+        trace.enable()
+        dist.barrier()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with sync_guard(cfg["retry_timeout_s"], 1), faults.inject_collective_fault("raise", 1):
+                retried = to_cpu(col.compute())
+        snap = trace.get_recorder().snapshot()
+        counted = {c["name"]: 0.0 for c in snap["counters"]}
+        for c in snap["counters"]:
+            counted[c["name"]] += c["value"]
+        out = {"rank": rank, "retry": {"bitwise": bitwise_equal(list(flatten_values(retried)),
+                                                                  list(flatten_values(plain))),
+                                       "retries": counted.get("sync.collective_retry", 0.0),
+                                       "collectives": counted.get("sync.collectives", 0.0),
+                                       "degraded": sum(m.sync_degraded for m in members)}}
+        trace.get_recorder().clear()
+        dist.barrier()
+        for m in members:
+            m.process_group = hang_group
+        hang = faults.inject_collective_fault("hang", 10_000) if rank == 1 else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with sync_guard(cfg["hang_timeout_s"], 1), hang:
+                hung = to_cpu(col.compute())
+                hung_s = time.perf_counter() - t0
+                agg = aggregate.aggregate(process_group=hang_group)
+        snap = trace.get_recorder().snapshot()
+        degraded_syncs = sum(c["value"] for c in snap["counters"] if c["name"] == "sync.degraded")
+        out["hang"] = {"seconds": hung_s, "degraded_syncs": degraded_syncs,
+                       "flagged": sum(m.sync_degraded for m in members), "synced": sum(m._is_synced for m in members),
+                       "equals_local": bitwise_equal(list(flatten_values(hung)), list(flatten_values(local))),
+                       "aggregate_degraded": agg["aggregate_degraded"], "missing_hosts": agg["missing_hosts"],
+                       "degraded_error": agg.get("degraded_error")}
+        payload = io.BytesIO()
+        torch.save(out, payload)
+        queue.put(("sync", payload.getvalue(), None))
+    except BaseException:
+        queue.put(("sync", None, traceback.format_exc()))
+        code = 1
+    finally:
+        queue.close()
+        queue.join_thread()
+        os._exit(code)
+
+
+def flatten_values(tree):
+    """The tensors of a computed value tree, in a fixed order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from flatten_values(tree[key])
+    elif isinstance(tree, (list, tuple)):
+        for item in tree:
+            yield from flatten_values(item)
+    else:
+        yield tree
+
+
+def obs_start_children(root: str) -> tuple:
+    """Spawn the profile process and the two ranks of the degraded-sync world; they run
+    while the parent audits."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    cfg = obs_config()
+    port = free_port()
+    procs = [ctx.Process(target=obs_profile_worker, args=(os.path.join(root, "profile"), cfg, results))]
+    procs += [ctx.Process(target=obs_sync_rank, args=(rank, port, cfg, results)) for rank in range(2)]
+    for proc in procs:
+        proc.start()
+    return procs, results
+
+
+def obs_join_children(procs: list, results) -> dict:
+    import io
+    import queue as queue_mod
+
+    import torch
+
+    got = {"profile": [], "sync": []}
+    deadline = time.monotonic() + OBS_CHILD_TIMEOUT_S
+    try:
+        while len(got["profile"]) + len(got["sync"]) < len(procs):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"obs_eval: a child hung ({len(got['profile'])} profile,"
+                                     f" {len(got['sync'])} sync results)")
+            try:
+                kind, result, error = results.get(timeout=1)
+            except queue_mod.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"obs_eval: a child exited with {dead} before it reported")
+                continue
+            if error is not None:
+                raise AssertionError(f"obs_eval: the {kind} child failed:\n{error}")
+            got[kind].append(torch.load(io.BytesIO(result)) if kind == "sync" else result)
+        for proc in procs:
+            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+            if proc.exitcode != 0:
+                raise AssertionError(f"obs_eval: a child ended with exit code {proc.exitcode}")
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return got
+
+
+def obs_check_children(got: dict) -> dict:
+    profile = got["profile"][0]
+    if not profile["session"] or profile["missing_ranges"] or any(profile["kernels_outside"].values()) \
+            or not all(profile["kernels_inside"].values()):
+        raise AssertionError(f"obs_eval profile: {profile}")
+    for kernel, owners in profile["kernels_inside"].items():
+        if sum(owners.values()) != profile["launches"][kernel]:
+            raise AssertionError(f"obs_eval profile: {kernel} traced {owners}, launched {profile['launches'][kernel]}")
+    ranks = sorted(got["sync"], key=lambda r: r["rank"])
+    for r in ranks:
+        retry, hang = r["retry"], r["hang"]
+        if not retry["bitwise"] or retry["retries"] != 1 or retry["degraded"]:
+            raise AssertionError(f"obs_eval sync rank {r['rank']}: the retried compute {retry}")
+        if not hang["flagged"] or hang["synced"] or not hang["equals_local"] or not hang["aggregate_degraded"] \
+                or hang["missing_hosts"] != [1 - r["rank"]]:
+            raise AssertionError(f"obs_eval sync rank {r['rank']}: the hung compute {hang}")
+    return {"profile": profile, "sync": ranks}
+
+
+def obs_hostprof_run(data: dict) -> dict:
+    """The host profiler at its default rate over an eager pass, a fused pass and a mux
+    pass of the grouped ImageNet collection, each a tenant session."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, MuxConfig, PipelineConfig, TenantMultiplexer
+    from torchmetrics_tpu_torch.obs import hostprof, scope
+
+    device = "cuda"
+    batches = data["imagenet"][:32]
+    col = MetricCollection(imagenet_metrics(device))
+    pipe = MetricPipeline(MetricCollection(imagenet_metrics(device)), PipelineConfig(fuse=PIPELINE_FUSE, tenant="fused"))
+    pipe.warmup(*batches[0])
+    mux = TenantMultiplexer(lambda: MetricCollection(imagenet_metrics(device)), MuxConfig(max_width=OBS_MUX_WIDTH))
+    streams = obs_mux_streams(batches, OBS_MUX_WIDTH, OBS_MUX_ROUNDS)
+    tenants = [f"mux-{j}" for j in range(OBS_MUX_WIDTH)]
+    for t in tenants:
+        mux.adopt(t)
+    torch.cuda.synchronize()
+    try:
+        with hostprof.sampling() as prof:
+            with scope.scope("eager"):
+                for p, t in batches:
+                    col.update(p, t)
+                torch.cuda.synchronize()
+            pipe.run(batches)
+            torch.cuda.synchronize()
+            for r in range(OBS_MUX_ROUNDS):
+                for j, t in enumerate(tenants):
+                    mux.feed(t, *streams[j][r])
+            mux.flush()
+            torch.cuda.synchronize()
+        pipe.close()
+        mux.close()
+        floor = prof.floor_report()
+        return {"rate_hz": prof.rate_hz, "samples": prof.stats()["samples"], "breakdown": prof.breakdown(),
+                "attributed_percent": prof.attributed_percent(),
+                "self_overhead_percent": prof.self_overhead_percent(),
+                "python_floor_fraction": floor["python_floor_fraction"], "paths": floor["paths"],
+                "tenants": prof.tenant_breakdown()}
+    finally:
+        scope.reset()
+
+
+def obs_plane_cost(data: dict) -> dict:
+    """µs per step of the fused ImageNet and CTR loops with every plane off, with the
+    host sampler alone, and with tracing, lineage, the auditor and the sampler on, in
+    turns (off, sampler, on, off, ...), each pass on a new pipeline; the median, the
+    spread and the median of each round's difference from its own ``off`` pass.
+    Reported, not gated."""
+    import torch
+
+    from torchmetrics_tpu_torch import MetricCollection
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.obs import audit, hostprof, lineage, trace
+
+    out = {}
+    for kind, metrics_fn in (("imagenet", imagenet_metrics), ("binary", binary_metrics)):
+        batches = data[kind] * (OBS_COST_CTR_REPEAT if kind == "binary" else 1)
+        times = {"off": [], "sampler": [], "on": []}
+        for _ in range(OBS_COST_ROUNDS):
+            for planes in times:
+                pipe = MetricPipeline(MetricCollection(metrics_fn("cuda")), PipelineConfig(fuse=PIPELINE_FUSE))
+                pipe.warmup(*batches[0])
+                torch.cuda.synchronize()
+                prof = None
+                if planes == "on":
+                    trace.enable(max_events=OBS_MAX_EVENTS)
+                    lineage.enable()
+                    audit.install_auditor(audit.ConservationAuditor())
+                if planes != "off":
+                    prof = hostprof.HostProfiler()
+                    hostprof.install(prof)
+                    prof.start()
+                try:
+                    t0 = time.perf_counter()
+                    pipe.run(batches)
+                    torch.cuda.synchronize()
+                    times[planes].append((time.perf_counter() - t0) / len(batches) * 1e6)
+                finally:
+                    if prof is not None:
+                        prof.stop()
+                        hostprof.install(None)
+                    audit.install_auditor(None)
+                    lineage.disable()
+                    trace.disable()
+                    trace.get_recorder().clear()
+                pipe.close()
+                del pipe
+                release_graphs()
+        out[kind] = {"steps": len(batches), "us_per_step": times,
+                     "median_us": {k: statistics.median(v) for k, v in times.items()},
+                     "spread_us": {k: [min(v), max(v)] for k, v in times.items()},
+                     "median_delta_us": {k: statistics.median(x - off for x, off in zip(v, times["off"]))
+                                         for k, v in times.items() if k != "off"}}
+    return out
+
+
+def obs_eval_phase() -> dict:
+    """The robust and observability planes on the main path: audit, memory, export and
+    Perfetto over the fused pipelines and the multiplexer; a spawned profile session and
+    a spawned two-rank degraded sync running meanwhile; then the host profiler and the
+    planes' cost per fused step."""
+    import shutil
+
+    root = obs_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    procs, results = obs_start_children(root)
+    try:
+        data = {"imagenet": batches_of(*imagenet_data(n=OBS_IMAGENET_BATCHES * 500, device="cuda"), 500),
+                "binary": batches_of(*binary_data(n=OBS_CTR_BATCHES << 18, device="cuda"), 1 << 18)}
+        t0 = time.perf_counter()
+        audited = obs_audit_run(data, root)
+        audited["seconds"] = time.perf_counter() - t0
+    except BaseException:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        raise
+    t0 = time.perf_counter()
+    children = obs_check_children(obs_join_children(procs, results))
+    children["wait_seconds"] = time.perf_counter() - t0
+    hostprof_record = obs_hostprof_run(data)
+    cost = obs_plane_cost(data)
+    shutil.rmtree(root, ignore_errors=True)
+    launches = audited.pop("launches")
+    return {"phase": "obs_eval", **audited, "children": children, "hostprof": hostprof_record,
+            "plane_cost": cost, "launches": launches}
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -3278,6 +3971,11 @@ def main() -> int:
     if "--family-eval" in sys.argv[1:]:
         t0 = time.perf_counter()
         emit({**family_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
+    if "--obs-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**obs_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
               "phase_wall_s": time.perf_counter() - t0})
         return 0
     if "--mux-eval" in sys.argv[1:]:
@@ -3371,6 +4069,10 @@ def main() -> int:
     emit({**image, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     t0 = time.perf_counter()
     emit({**gradient_phase(), "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    obs = obs_eval_phase()
+    phases.append(obs)
+    emit({**obs, "card": smi, "phase_wall_s": time.perf_counter() - t0})
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -1809,3 +1809,208 @@ def test_a_family_collection_through_fused_chunks_is_bitwise_its_eager_loop(card
     got, want = driven.compute(), eager.compute()
     for name in want:
         _assert_bitwise(got[name], want[name], name)
+
+
+# ------------------------------------------------------------- robust and obs planes
+
+
+def _capture_spies(monkeypatch) -> dict:
+    """Record, for every audit note and every ``record_function`` range entered, whether
+    a CUDA graph capture was recording at that moment."""
+    from torchmetrics_tpu_torch.obs import audit
+
+    seen = {"note_fold": [], "record_function": []}
+    real_note, real_range = audit.note_fold, torch.profiler.record_function
+
+    def note_fold(*args, **kwargs):
+        seen["note_fold"].append(torch.cuda.is_current_stream_capturing())
+        return real_note(*args, **kwargs)
+
+    def record_function(name, *args, **kwargs):
+        seen["record_function"].append((name, torch.cuda.is_current_stream_capturing()))
+        return real_range(name, *args, **kwargs)
+
+    monkeypatch.setattr(audit, "note_fold", note_fold)
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    return seen
+
+
+def test_an_audited_fused_pipeline_and_mux_balance_their_ledger(card, monkeypatch):
+    """The auditor over a fused ImageNet pipeline (one NaN batch quarantined) and a
+    4-wide CTR multiplexer on the card: every tenant's ledger balances, no invariant is
+    violated, and every fold was noted on the host, outside any capture."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, MuxConfig, PipelineConfig, TenantMultiplexer
+    from torchmetrics_tpu_torch.obs import audit, lineage, scope
+    from torchmetrics_tpu_torch.robust import faults
+
+    seen = _capture_spies(monkeypatch)
+    lineage.enable()
+    auditor = audit.ConservationAuditor(cadence_seconds=1e-6)
+    audit.install_auditor(auditor)
+    try:
+        col = MetricCollection(_imagenet_set(card))
+        for m in col.values(copy_state=False):
+            m.error_policy = "quarantine"
+        pipe = MetricPipeline(col, PipelineConfig(fuse=4, tenant="imagenet"))
+        batches = [(p.to(card), t.to(card)) for p, t in _pipeline_batches("imagenet", 9)]
+        with faults.inject_nan_updates(indices=(5,)), pytest.warns(RuntimeWarning):
+            report = pipe.run(batches)
+        assert report.chunks_replayed == 1
+        mux = TenantMultiplexer(lambda: MetricCollection(_binary_set(card)), MuxConfig(max_width=4))
+        ctr = [(p.to(card), t.to(card)) for p, t in _pipeline_batches("binary", 3)]
+        for r, (p, t) in enumerate(ctr):
+            for j in range(4):
+                mux.feed(f"ctr-{j}", p, t)
+        mux.flush()
+        torch.cuda.synchronize()
+        auditor.tick(now=1.0)
+        auditor.tick(now=2.0)
+        pipe.close()
+        mux.close()
+        auditor.tick(now=3.0)
+        result = auditor.report()
+    finally:
+        audit.install_auditor(None)
+        lineage.disable()
+        scope.reset()
+    assert result["violations"] == [] and all(row["passed"] for row in result["invariants"])
+    for tenant, entry in result["tenants"].items():
+        totals = entry["totals"]
+        assert totals["fed"] == sum(totals[k] for k in ("processed", "shed", "deferred_pending", "quarantined",
+                                                        "skipped", "in_flight", "handed_off")), tenant
+    assert result["tenants"]["imagenet"]["totals"]["fed"] == 9
+    assert result["tenants"]["imagenet"]["totals"]["quarantined"] == len(col.compute_groups)
+    assert {t: result["tenants"][t]["totals"]["fed"] for t in ("ctr-0", "ctr-3")} == {"ctr-0": 3, "ctr-3": 3}
+    assert seen["note_fold"] and not any(seen["note_fold"])
+
+
+def test_a_captured_update_records_no_range_and_no_audit_note_inside_its_capture(card, monkeypatch, tmp_path):
+    """With a profile session live and the auditor on, a ``jit_update`` metric and a fused
+    pipeline capture their graphs: the metric ranges are entered in the warm call and
+    on the eager path, never while the capture records, and no fold is noted there."""
+    from torchmetrics_tpu_torch.engine import MetricPipeline, PipelineConfig
+    from torchmetrics_tpu_torch.obs import audit, lineage, profile
+
+    seen = _capture_spies(monkeypatch)
+    batches = [(p.to(card), t.to(card)) for p, t in _imagenet_batches(4, n=64)]
+    lineage.enable()
+    audit.install_auditor(audit.ConservationAuditor())
+    try:
+        assert profile.start_trace(str(tmp_path))
+        jitted = tc.MulticlassConfusionMatrix(1000, validate_args=False, jit_update=True)
+        for p, t in batches:
+            jitted.update(p, t)
+        pipe = MetricPipeline(MetricCollection(_imagenet_set(card)), PipelineConfig(fuse=2))
+        pipe.run(batches)
+        pipe.close()
+        torch.cuda.synchronize()
+        assert profile.stop_trace()
+    finally:
+        profile.reset()
+        audit.install_auditor(None)
+        lineage.disable()
+    assert jitted._jitted_update.cache_info()["replays"] == 4
+    names = {name for name, _ in seen["record_function"]}
+    assert "MulticlassConfusionMatrix.update" in names
+    assert not any(capturing for _, capturing in seen["record_function"])
+    assert seen["note_fold"] and not any(seen["note_fold"])
+    with open(profile.last_trace_path(), encoding="utf-8") as fh:
+        assert json.load(fh)["traceEvents"]
+
+
+def test_device_memory_stats_has_both_keys_for_the_card(card):
+    from torchmetrics_tpu_torch.obs import memory
+
+    block = torch.zeros(1 << 20, dtype=torch.float32, device=card)
+    stats = memory.device_memory_stats()
+    row = stats["cuda:0"]
+    assert set(row) == {"bytes_in_use", "peak_bytes_in_use"}
+    assert row["peak_bytes_in_use"] >= row["bytes_in_use"] >= block.numel() * 4
+    assert memory.peak_device_bytes() == max(r["peak_bytes_in_use"] for r in stats.values())
+    col = MetricCollection(_imagenet_set(card))
+    cpu = MetricCollection(_imagenet_set("cpu"))
+    assert col.memory_footprint() == cpu.memory_footprint()
+
+
+def test_guard_thread_runs_a_card_collective_on_the_callers_stream(card):
+    """With a timeout set, the sync guard's worker thread enters the caller's current
+    stream for a CUDA payload (an NCCL collective is ordered against it)."""
+    import threading
+
+    from torchmetrics_tpu_torch.robust import degraded
+
+    side = torch.cuda.Stream(device=card)
+    seen = []
+
+    def collective(parts, tensor, group=None):
+        seen.append((threading.current_thread().name, torch.cuda.current_device(), torch.cuda.current_stream()))
+        parts[0].copy_(tensor)
+
+    with torch.cuda.stream(side):
+        payload = torch.arange(1024.0, device=card)
+        parts = [torch.empty_like(payload)]
+        with degraded.sync_guard(30.0, 0):
+            degraded.guarded_collective(collective, parts, payload, group=None, description="probe")
+    torch.cuda.synchronize()
+    name, device, stream = seen[0]
+    assert name == "guarded-probe" and device == payload.device.index and stream == side
+    assert torch.equal(parts[0], payload)
+
+
+def _profiled_update_ranges(log_dir: str) -> dict:
+    """One profile session over three eager updates of a macro accuracy (K1) and a
+    micro-averaged PR curve (K2) at 1000 classes: each range's count and the K1/K2
+    kernels whose launch (CUDA runtime call, by correlation id) lies inside a range."""
+    from torchmetrics_tpu_torch.obs import profile
+
+    card = torch.device("cuda")
+    acc = tc.MulticlassAccuracy(1000, average="macro", validate_args=False, device=card)
+    curve = tc.MulticlassPrecisionRecallCurve(1000, average="micro", thresholds=200, validate_args=False,
+                                              device=card)
+    batches = [(p.to(card), t.to(card)) for p, t in _imagenet_batches(4, n=500)]
+    acc.update(*batches[0])
+    curve.update(*batches[0])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile.profile_session(log_dir, host=False) as session:
+        for p, t in batches[1:]:
+            acc.update(p, t)
+            curve.update(p, t)
+        torch.cuda.synchronize()
+    assert session["device"]
+    with open(profile.last_trace_path(), encoding="utf-8") as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and e["name"].endswith(".update")]
+    runtime = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "cuda_runtime" and "correlation" in (e.get("args") or {})}
+    inside: dict = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kernel = "K1" if "confusion_matrix_" in e["name"] else "K2" if "curve_" in e["name"] else None
+        host = runtime.get((e.get("args") or {}).get("correlation"))
+        if kernel is None or host is None:
+            continue
+        owner = next((r["name"] for r in ranges if r.get("tid") == host.get("tid")
+                      and r["ts"] <= host["ts"] <= r["ts"] + r["dur"]), None)
+        inside.setdefault(kernel, {}).setdefault(str(owner), 0)
+        inside[kernel][str(owner)] += 1
+    return {"ranges": sorted({r["name"] for r in ranges}), "inside": inside,
+            "launches": {k: kernels.LAUNCHES[k] for k in ("confusion_matrix", "binned_curve_counts")}}
+
+
+def test_a_profile_of_an_eager_update_shows_the_metric_range_around_its_kernels(card, tmp_path):
+    """In a new process (the profiler starts fresh there): the trace holds the metrics'
+    ``<Class>.update`` ranges, and every K1 launch lies inside the accuracy's, every K2
+    launch inside the PR curve's."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._profiled_update_ranges(sys.argv[3])))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), str(tmp_path)],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    got = json.loads(done.stdout.strip().splitlines()[-1])
+    assert {"MulticlassAccuracy.update", "MulticlassPrecisionRecallCurve.update"} <= set(got["ranges"])
+    assert got["launches"] == {"confusion_matrix": 3, "binned_curve_counts": 3}
+    assert got["inside"]["K1"] == {"MulticlassAccuracy.update": 3}
+    assert got["inside"]["K2"] == {"MulticlassPrecisionRecallCurve.update": 3}

@@ -23,7 +23,8 @@ The streaming engine (``engine/pipeline.py``) folds a fused chunk through each g
 leader once and commits the result to the whole group (``_engine_fusable_leaders``,
 ``_engine_commit``). A collection built under a tenant scope (``obs/scope.py``) is
 that tenant's: members without a tenant of their own take it. ``memory_footprint``
-and ``plot`` come with the observability and plotting slices.
+sums the members' state bytes, an aliased compute-group state once (``obs/memory.py``);
+``plot`` comes with the plotting slice.
 """
 
 from __future__ import annotations
@@ -390,6 +391,21 @@ class MetricCollection(torch.nn.ModuleDict):
                 batch_states[gid] = m0.pure_update(m0.init_state(), *args, **m0._filter_kwargs(**kwargs))
             ordered[k] = _squeeze_if_scalar(self._modules[k].pure_compute(batch_states[gid]))
         return ordered
+
+    def _memory_children(self) -> List[Tuple[str, Metric]]:
+        """Member metrics, for state-memory accounting (``obs/memory.py``).
+
+        Compute-group members alias their leader's state tensors; the accounting
+        dedups shared buffers by identity, so a collection's ``unique_bytes`` reflects
+        what the grouping actually saves.
+        """
+        return list(self._modules.items())
+
+    def memory_footprint(self) -> Dict[str, Any]:
+        """Recursive state-memory footprint of the collection (see ``obs.memory``)."""
+        from torchmetrics_tpu_torch.obs import memory as _memory
+
+        return _memory.footprint(self)
 
     # ------------------------------------------------------------------- dict protocol
 

@@ -47,8 +47,12 @@ PyTorch idiom inside:
   ``list_state_warn_threshold`` items warn once; with tracing on, the
   ``state.list_items`` gauge follows their growth.
 
-Degrading a failed sync to local state (``sync_degraded`` stays ``False``) comes with
-the robust plane.
+- A sync whose collective fails under the robust sync guard (``robust/degraded.py``)
+  degrades to the local state, sets ``sync_degraded`` and warns, as JAX's does.
+- While a profile session of ``obs/profile.py`` is live (and no CUDA graph capture
+  records), update, compute and sync run inside ``torch.profiler.record_function``
+  ranges named ``<Class>.update`` / ``.compute`` / ``.sync``, where JAX puts its
+  ``jax.named_scope``; otherwise they enter no range.
 """
 
 from __future__ import annotations
@@ -56,13 +60,14 @@ from __future__ import annotations
 import inspect
 import itertools
 from abc import ABC, abstractmethod
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from copy import deepcopy
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.profile as _profile
 import torchmetrics_tpu_torch.obs.scope as _scope
 import torchmetrics_tpu_torch.obs.trace as _trace
 import torchmetrics_tpu_torch.obs.values as _values
@@ -72,6 +77,7 @@ from torchmetrics_tpu_torch.parallel.reductions import Reduction, merge_states
 from torchmetrics_tpu_torch.parallel.sync import distributed_available
 from torchmetrics_tpu_torch.parallel.sync import sync_state as _sync_state_fn
 from torchmetrics_tpu_torch.robust import faults as _faults
+from torchmetrics_tpu_torch.robust.degraded import CollectiveError
 from torchmetrics_tpu_torch.robust.policy import (
     ErrorPolicy,
     UpdateGuardError,
@@ -188,7 +194,7 @@ class Metric(torch.nn.Module, ABC):
         self._is_synced = False
         self._should_unsync = True
         self._to_sync = self.sync_on_compute
-        # set where a failed sync degrades to local state: the robust plane's, not ported
+        # set where a failed sync degrades to local state (robust/degraded.py)
         self.sync_degraded = False
 
         # update-guard counters (robust/policy.py): plain ints, free on the unguarded path
@@ -323,6 +329,18 @@ class Metric(torch.nn.Module, ABC):
         """Current values of all registered states."""
         return dict(self._state_values)
 
+    def _memory_children(self) -> List[tuple]:
+        """``(label, metric)`` pairs of nested metrics holding extra state, which the
+        state-memory accounting (``obs/memory.py``) bills to this metric. Plain
+        metrics own none."""
+        return []
+
+    def memory_footprint(self) -> Dict[str, Any]:
+        """Recursive state-memory footprint of this metric (see ``obs.memory``)."""
+        from torchmetrics_tpu_torch.obs import memory as _memory
+
+        return _memory.footprint(self)
+
     def _obs_labels(self) -> Dict[str, str]:
         """Tenant label for span/counter call sites (``obs/scope.py``): the ambient
         tenant, else the one captured at construction; ``{}`` while tenancy is idle."""
@@ -403,7 +421,11 @@ class Metric(torch.nn.Module, ABC):
         prev = self._bind_state(state)
         try:
             args, kwargs = self._inputs_to_device(args, kwargs)
-            self._update_impl(*args, **kwargs)
+            if _profile.RANGES:
+                with _profile.metric_range(f"{type(self).__name__}.update"):
+                    self._update_impl(*args, **kwargs)
+            else:
+                self._update_impl(*args, **kwargs)
             return dict(self.__dict__["_state_values"])
         finally:
             self.__dict__["_state_values"] = prev
@@ -412,6 +434,9 @@ class Metric(torch.nn.Module, ABC):
         """Pure ``value = compute(state)``."""
         prev = self._bind_state(state)
         try:
+            if _profile.RANGES:
+                with _profile.metric_range(f"{type(self).__name__}.compute"):
+                    return self._compute_impl()
             return self._compute_impl()
         finally:
             self.__dict__["_state_values"] = prev
@@ -419,7 +444,8 @@ class Metric(torch.nn.Module, ABC):
     def sync_state(self, state: Dict[str, Any], process_group: Optional[Any] = None) -> Dict[str, Any]:
         """Sync a state dict across the ranks of ``process_group`` (default: the metric's);
         a pure function (see ``parallel.sync_state``)."""
-        return _sync_state_fn(state, self._reductions, process_group or self.process_group, device=self._device)
+        with _profile.metric_range(f"{type(self).__name__}.sync") if _profile.RANGES else nullcontext():
+            return _sync_state_fn(state, self._reductions, process_group or self.process_group, device=self._device)
 
     def scan_update(self, state: Dict[str, Any], *batched_args: Any, **batched_kwargs: Any) -> Dict[str, Any]:
         """Fold a stream of batches into the state, one ``pure_update`` per leading index.
@@ -573,7 +599,11 @@ class Metric(torch.nn.Module, ABC):
                     self._move_list_states_to_cpu()
                 self._check_list_state_growth()
             return
-        self._update_impl(*args, **kwargs)
+        if _profile.RANGES:
+            with _profile.metric_range(f"{type(self).__name__}.update"):
+                self._update_impl(*args, **kwargs)
+        else:
+            self._update_impl(*args, **kwargs)
         if self.compute_on_cpu:
             self._move_list_states_to_cpu()
         self._check_list_state_growth()
@@ -835,10 +865,35 @@ class Metric(torch.nn.Module, ABC):
         if not should_sync or not is_dist:
             return
         self._cache = dict(self._state_values)
-        # the robust plane wraps this call: a failed collective degrades to the local
-        # state and sets `sync_degraded`
-        self._sync_dist(dist_sync_fn, process_group)
+        # the sync runs under the metric's tenant session, so every recorder write
+        # below it (the guard's sync.collective_timeout / sync.collective_retry
+        # counters too) picks up the tenant
+        sync_tenant = (_scope.current_tenant() or self._obs_tenant) if _scope.ENABLED else None
+        try:
+            with _scope.session(sync_tenant) if sync_tenant is not None else nullcontext():
+                if _trace.ENABLED:
+                    with _trace.span("metric.sync", metric=type(self).__name__, **self._obs_labels()):
+                        self._sync_dist(dist_sync_fn, process_group)
+                else:
+                    self._sync_dist(dist_sync_fn, process_group)
+        except CollectiveError as err:
+            # degraded sync: keep local-only state rather than hanging or crashing the
+            # job (see robust/degraded.py). Loud by design.
+            self._state_values = self._cache
+            self._cache = None
+            self.sync_degraded = True
+            if _trace.ENABLED:
+                _trace.inc("sync.degraded", metric=type(self).__name__, **self._obs_labels())
+                _trace.event("sync.degraded", metric=type(self).__name__, error=str(err), **self._obs_labels())
+            rank_zero_warn(
+                f"Cross-host sync of {type(self).__name__} failed and was DEGRADED"
+                f" to local-only state: {err}. Results from this process reflect"
+                " only locally-accumulated batches; `metric.sync_degraded` is set.",
+                RuntimeWarning,
+            )
+            return
         self._is_synced = True
+        self.sync_degraded = False
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Bind the local state kept aside by :meth:`sync` again."""
@@ -904,6 +959,9 @@ class Metric(torch.nn.Module, ABC):
         with self.sync_context(
             dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
         ):
+            if _profile.RANGES:
+                with _profile.metric_range(f"{type(self).__name__}.compute"):
+                    return _squeeze_if_scalar(self._compute_impl())
             return _squeeze_if_scalar(self._compute_impl())
 
     # ------------------------------------------------------------------------- others

@@ -54,7 +54,8 @@ an unmigrated control; a crash restore plus a re-feed of the gap does too.
   bundle that :func:`restore_session` restores as a ``MetricPipeline`` session; a
   ``MuxConfig.checkpoint`` policy writes each tenant's slices as its own stream.
 
-What waits for a later slice: the conservation audit's hooks (``obs/audit.py``).
+A slice extracted with its deferred backlog notes the backlog to the conservation
+audit (``obs/audit.py``) as handed-off work, behind ``if _audit.ENABLED:``.
 
 Operator CLI::
 
@@ -79,6 +80,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.audit as _audit
 import torchmetrics_tpu_torch.obs.lineage as _lineage
 import torchmetrics_tpu_torch.obs.scope as _scope
 import torchmetrics_tpu_torch.obs.trace as _trace
@@ -602,6 +604,10 @@ def _capture_mux_slice(
     log = _resolve_value_log(value_log, engine)
     if flush_pending:
         backlog = mux._deferred.pop(effective, None) or []
+        if _audit.ENABLED and backlog:
+            # the backlog leaves with the bundle: conserved as handed-off
+            # work, completed by the restoring session under its own ledger
+            _audit.note_handed_off(mux, "mux", effective, len(backlog))
     else:
         backlog = list(mux._deferred.get(effective) or [])
     tail_batches = [(tuple(a), dict(k), t) for a, k, t in backlog]

@@ -49,8 +49,9 @@ signature) before its pending group dispatched flushes that group first.
 
 Telemetry (``obs/trace.py``, off by default) keeps the JAX names: ``engine.mux_*``
 counters and gauges, ``engine.dispatch`` spans with ``path="mux"``. :meth:`report`
-returns the same accounting as plain ints. The JAX module's conservation-audit hooks
-(``obs/audit.py``) come with the obs plane.
+returns the same accounting as plain ints. The conservation audit (``obs/audit.py``)
+hooks in where the JAX module's does, each behind ``if _audit.ENABLED:``; a fold is
+noted on the host after a group's replay has returned, never inside a capture.
 """
 
 from __future__ import annotations
@@ -65,6 +66,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.audit as _audit
 import torchmetrics_tpu_torch.obs.cost as _cost
 import torchmetrics_tpu_torch.obs.lineage as _lineage
 import torchmetrics_tpu_torch.obs.scope as _scope
@@ -421,6 +423,8 @@ class TenantMultiplexer:
             "renewed_unix": lease_now,
         }
         self._lease_renew_at = lease_now + config.lease_seconds / 4.0
+        if _audit.ENABLED:
+            _audit.track(self, "mux", self._label)
         for tenant, metric in (metrics or {}).items():
             self.adopt(tenant, metric)
 
@@ -871,6 +875,9 @@ class TenantMultiplexer:
                     # tenant's fresh lease must stay live
                     if lease_rows.get(tenant, {}).get("epoch") == self._lease["epoch"]:
                         _scope.note_lease_released(tenant)
+                if _audit.ENABLED:
+                    # freeze every tenant's final ledger rows for the merge
+                    _audit.note_close(self)
         return self.report()
 
     def __enter__(self) -> "TenantMultiplexer":
@@ -1204,6 +1211,9 @@ class TenantMultiplexer:
             if record is not None:
                 record["chunk_id"] = gid
                 record["path"] = "mux"
+            if _audit.ENABLED:
+                # on the host, after the group's replay has returned
+                _audit.note_fold(self, "mux", tenant, self._lineage_epoch, row[4])
             if row[4] is not None:
                 _lineage.get_index().update(row[4], chunk_id=gid, path="mux", outcome="ok")
         self._report.dispatches += 1
@@ -1308,6 +1318,8 @@ class TenantMultiplexer:
         self._tenant_folded[tenant] = self._tenant_folded.get(tenant, 0) + 1
         self._report.eager_updates += 1
         self._report.eager_dispatches += 1
+        if _audit.ENABLED:
+            _audit.note_fold(self, "mux", tenant, self._lineage_epoch, trace_id)
         if _trace.ENABLED:
             _trace.inc("engine.mux_eager_updates", mux=self._label)
         self._mark_eager_fault(tenant, record, before, trace_id)
@@ -1335,6 +1347,8 @@ class TenantMultiplexer:
         self._tenant_folded[tenant] = self._tenant_folded.get(tenant, 0) + 1
         self._report.eager_updates += 1
         self._report.eager_dispatches += max(1, len(self._per_batch_metrics(target)))
+        if _audit.ENABLED:
+            _audit.note_fold(self, "mux", tenant, self._lineage_epoch, trace_id)
         self._mark_eager_fault(tenant, record, before, trace_id)
         self._maybe_checkpoint()
         self._evaluate_alerts([tenant], trace_ids=[trace_id] if trace_id is not None else ())
@@ -1356,6 +1370,9 @@ class TenantMultiplexer:
         self._tenant_folded[tenant] = self._tenant_folded.get(tenant, 0) + 1
         self._report.replayed_updates += 1
         self._report.eager_dispatches += max(1, len(self._per_batch_metrics(target)))
+        if _audit.ENABLED:
+            # the ambient trace context is set by _replay_rows around this call
+            _audit.note_fold(self, "mux", tenant, self._lineage_epoch, _lineage.current_trace())
         if _trace.ENABLED:
             _trace.inc("engine.mux_replayed_updates", mux=self._label, tenant=tenant)
 

@@ -73,6 +73,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+import torchmetrics_tpu_torch.obs.audit as _audit
 import torchmetrics_tpu_torch.obs.lineage as _lineage
 import torchmetrics_tpu_torch.obs.scope as _scope
 import torchmetrics_tpu_torch.obs.trace as _trace
@@ -503,6 +504,8 @@ class MetricPipeline:
         # every bundle. A restore that adopts a bundled epoch re-mints under it.
         self._lease = _fence.mint_lease(self._tenant, epoch=self._lineage_epoch, ttl_seconds=config.lease_seconds)
         self._lease_renew_at = time.time() + config.lease_seconds / 4.0
+        if _audit.ENABLED:
+            _audit.track(self, "pipeline", self._label)
 
     # --------------------------------------------------------------------- session
 
@@ -764,6 +767,10 @@ class MetricPipeline:
                 self._dispatch_chunk()
             self._wait_inflight()
             tail, self._deferred = self._deferred, []
+            if _audit.ENABLED:
+                # drained tail batches leave with the bundle: conserved as
+                # handed-off work, completed by the restoring session
+                _audit.note_handed_off(self, "pipeline", self._tenant, len(tail))
             return tail
 
     def replay_tail(self, batches: Iterable[tuple], deferred: int = 0) -> int:
@@ -821,6 +828,10 @@ class MetricPipeline:
             key = self._tenant if self._tenant is not None else "__local__"
             if _scope.lease_status().get(key, {}).get("epoch") == self._lease["epoch"]:
                 _scope.note_lease_released(self._tenant)
+            if _audit.ENABLED:
+                # freeze this generation's final ledger rows — they keep
+                # feeding the per-tenant merge after the object dies
+                _audit.note_close(self)
         return self.report()
 
     def compute(self) -> Any:
@@ -1220,6 +1231,10 @@ class MetricPipeline:
         self._report.padded_steps += pad
         self._report.max_chunk = max(self._report.max_chunk, n)
         self._report.last_chunk = n
+        if _audit.ENABLED:
+            # on the host, after the chunk's replay has returned
+            for tid in chunk.trace_ids:
+                _audit.note_fold(self, "pipeline", self._tenant, self._lineage_epoch, tid)
         if _trace.ENABLED:
             _trace.inc("engine.dispatches", pipeline=self._label)
             _trace.inc("engine.fused_batches", n, pipeline=self._label)
@@ -1359,6 +1374,8 @@ class MetricPipeline:
                 self._update_target(args, kwargs)
         self._report.eager_batches += 1
         self._report.eager_dispatches += 1
+        if _audit.ENABLED:
+            _audit.note_fold(self, "pipeline", self._tenant, self._lineage_epoch, trace_id)
         if _trace.ENABLED:
             _trace.inc("engine.eager_batches", pipeline=self._label)
         waited = self._ticket()
@@ -1421,6 +1438,8 @@ class MetricPipeline:
         self._report.eager_batches += 1
         # one host dispatch per driven metric, matching _drive_eager_leaders' accounting
         self._report.eager_dispatches += max(1, len(self._per_batch_metrics()))
+        if _audit.ENABLED:
+            _audit.note_fold(self, "pipeline", self._tenant, self._lineage_epoch, trace_id)
         if attributed:
             if trace_id is not None:
                 _lineage.get_index().update(trace_id, path="eager", outcome="ok")
@@ -1492,6 +1511,8 @@ class MetricPipeline:
                 raise
             self._report.replayed_batches += 1
             self._report.eager_dispatches += max(1, len(self._per_batch_metrics()))
+            if _audit.ENABLED:
+                _audit.note_fold(self, "pipeline", self._tenant, self._lineage_epoch, tid)
             if _trace.ENABLED:
                 _trace.inc("engine.replayed_batches", pipeline=self._label)
             if attributed:

@@ -30,10 +30,11 @@ attribution plane:
   (``engine/mux.py``) consult :func:`get_admission` per fed batch; decisions surface
   as ``tenant.quota_*`` gauges (``tenant.quota_exceeded`` is
   :class:`~torchmetrics_tpu_torch.obs.alerts.AlertRule`-compatible).
+- :func:`track_thread_tenants` / :func:`thread_tenants` — the thread→tenant mirror
+  that the host profiler (``obs/hostprof.py``) reads from its sampler thread, where
+  a contextvar cannot be read.
 The obs server's ``/healthz``, ``/tenants`` and ``/leases`` views, which the comments
-below name as readers of these notes, come with ``obs/server.py``; the thread→tenant
-mirror of the JAX module (``track_thread_tenants``, the host profiler's hook) comes
-with ``obs/hostprof.py``.
+below name as readers of these notes, come with ``obs/server.py``.
 
 The disabled path is one branch: :data:`ENABLED` stays ``False`` until the first
 tenant is registered (a scope entered, a metric adopted, a pipeline configured), and
@@ -97,6 +98,8 @@ __all__ = [
     "session",
     "tag",
     "torn_bundle_count",
+    "thread_tenants",
+    "track_thread_tenants",
     "validate_tenant",
 ]
 
@@ -114,6 +117,27 @@ DEFAULT_MAX_TENANTS = 1024
 # the ambient tenant of the current context (always an *effective* label:
 # past-cap tenants were already collapsed to OVERFLOW_TENANT at scope entry)
 _TENANT: ContextVar[Optional[str]] = ContextVar("tm_tpu_tenant", default=None)
+
+# cross-thread tenant attribution for the sampling profiler: a ContextVar is
+# unreadable from another thread, so while tracking is on, scope()/session()
+# also mirror the effective tenant into this thread-id-keyed dict. Off by
+# default — the hot per-feed session entry pays one module-attribute load and
+# one branch; obs/hostprof flips it on only while its sampler is live.
+_TRACK_THREAD_TENANTS = False
+_THREAD_TENANTS: Dict[int, str] = {}
+
+
+def track_thread_tenants(on: bool) -> None:
+    """Enable/disable the thread→tenant mirror (hostprof's sampler hook)."""
+    global _TRACK_THREAD_TENANTS
+    _TRACK_THREAD_TENANTS = bool(on)
+    if not on:
+        _THREAD_TENANTS.clear()
+
+
+def thread_tenants() -> Dict[int, str]:
+    """Snapshot of ``{thread_id: effective_tenant}`` for live scoped threads."""
+    return dict(_THREAD_TENANTS)
 
 
 def validate_tenant(tenant: Any) -> str:
@@ -363,6 +387,7 @@ def reset() -> None:
         _FENCED_REJECTED = 0
         _FENCED_SWEPT = 0
         _FAILOVER_YIELDED = 0
+    track_thread_tenants(False)
     ENABLED = False
 
 
@@ -384,10 +409,20 @@ def scope(tenant: str) -> Iterator[str]:
     effective = _REGISTRY.activate(validate_tenant(tenant))
     ENABLED = True
     token = _TENANT.set(effective)
+    tid = prev = None
+    if _TRACK_THREAD_TENANTS:
+        tid = threading.get_ident()
+        prev = _THREAD_TENANTS.get(tid)
+        _THREAD_TENANTS[tid] = effective
     try:
         yield effective
     finally:
         _TENANT.reset(token)
+        if tid is not None:
+            if prev is None:
+                _THREAD_TENANTS.pop(tid, None)
+            else:
+                _THREAD_TENANTS[tid] = prev
 
 
 @contextmanager
@@ -402,10 +437,20 @@ def session(effective: str) -> Iterator[str]:
     registry cannot explain.
     """
     token = _TENANT.set(effective)
+    tid = prev = None
+    if _TRACK_THREAD_TENANTS:
+        tid = threading.get_ident()
+        prev = _THREAD_TENANTS.get(tid)
+        _THREAD_TENANTS[tid] = effective
     try:
         yield effective
     finally:
         _TENANT.reset(token)
+        if tid is not None:
+            if prev is None:
+                _THREAD_TENANTS.pop(tid, None)
+            else:
+                _THREAD_TENANTS[tid] = prev
 
 
 def adopt(tenant: Optional[str] = None) -> Optional[str]:

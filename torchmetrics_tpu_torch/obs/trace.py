@@ -23,8 +23,9 @@ treated as bounded-cardinality labels (metric class, dispatch path), while
 numeric attributes (payload sizes, cache sizes) stay event-only so an unbounded
 value stream can never explode the histogram key space.
 
-The exporters (JSONL, Prometheus text, summary) and the cross-host aggregation
-come with the obs slice.
+Egress lives in :mod:`torchmetrics_tpu_torch.obs.export` (JSONL, Prometheus text,
+summary table), :mod:`torchmetrics_tpu_torch.obs.perfetto` (Chrome trace JSON) and
+:mod:`torchmetrics_tpu_torch.obs.profile` (``torch.profiler`` device traces).
 """
 
 from __future__ import annotations
@@ -166,6 +167,14 @@ class TraceRecorder:
     def __init__(self, max_events: int = _DEFAULT_MAX_EVENTS) -> None:
         self._lock = threading.Lock()
         self._local = threading.local()
+        # cross-thread view of the per-thread span stacks: each thread's
+        # thread-local stack LIST is also registered here by id, so a
+        # sampling profiler (obs/hostprof.py) can join the ambient span
+        # context of every thread. The lists mutate in place; a racy read
+        # sees a momentarily stale but well-formed view, which is all
+        # statistical sampling needs. Live context, not recorded data — it
+        # survives clear().
+        self._thread_stacks: Dict[int, List[Tuple[str, Dict[str, Any]]]] = {}
         self.max_events = int(max_events)
         self.clear()
 
@@ -190,7 +199,35 @@ class TraceRecorder:
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
+            with self._lock:
+                self._thread_stacks[threading.get_ident()] = stack
         return stack
+
+    def thread_spans(self) -> Dict[int, List[Tuple[str, Dict[str, Any]]]]:
+        """Racy cross-thread snapshot of every thread's live span stack.
+
+        ``{thread_id: [(span_name, attrs), ...]}`` innermost LAST, empty
+        stacks omitted. The per-entry ``list(...)`` copy is taken without
+        coordinating with the owning thread — the registry holds the live
+        list objects — so a concurrent push/pop can surface a one-span-stale
+        view; callers are statistical samplers where that is fine. Dead
+        threads are pruned lazily once the registry grows past a bound.
+        """
+        with self._lock:
+            if len(self._thread_stacks) > 256:
+                alive = {t.ident for t in threading.enumerate()}
+                for tid in [t for t in self._thread_stacks if t not in alive]:
+                    del self._thread_stacks[tid]
+            items = list(self._thread_stacks.items())
+        out: Dict[int, List[Tuple[str, Dict[str, Any]]]] = {}
+        for tid, stack in items:
+            try:
+                copy = list(stack)
+            except Exception:
+                continue
+            if copy:
+                out[tid] = copy
+        return out
 
     def _append(self, record: Dict[str, Any]) -> None:
         # caller holds the lock; while (not if): the cap may have been lowered

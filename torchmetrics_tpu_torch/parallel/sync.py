@@ -16,20 +16,28 @@ group when ``None``) stands in for JAX's ``axis_name``.
 - Gloo runs ``all_gather`` on CPU tensors only. A gloo group's collective therefore
   stages a CUDA tensor through host memory and puts the result back on its device
   (``stages_through_host``); NCCL takes CUDA tensors as they are.
+- Every collective goes through the robust sync guard (``robust/degraded.py``):
+  unconfigured, a direct call; configured, a timeout and bounded retries, and on
+  exhaustion a ``CollectiveError`` that ``Metric.sync`` degrades on. While tracing is
+  on, each collective is counted (``sync.collectives``, ``sync.payload_bytes``, the
+  ``sync.collective`` histogram and event).
 - Outside an initialised process group ``sync_state`` returns the state as it is (a
   list state concatenated).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+import torchmetrics_tpu_torch.obs.trace as _trace
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.parallel.reductions import Reduction
+from torchmetrics_tpu_torch.robust.degraded import guarded_collective
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 
 Tensor = torch.Tensor
@@ -51,18 +59,39 @@ def stages_through_host(tensor: Tensor, process_group: Optional[Any] = None) -> 
     return tensor.is_cuda and dist.get_backend(process_group) == dist.Backend.GLOO
 
 
-def _all_gather(x: Tensor, process_group: Optional[Any]) -> Tensor:
+def _all_gather(x: Tensor, process_group: Optional[Any], description: str = "all_gather") -> Tensor:
     """``[world, *x.shape]``: every rank's ``x``, in rank order (equal shapes on every rank).
 
-    Every collective of this module goes through here. The JAX package routes each
-    eager collective through the robust sync guard (timeout, bounded retries, degrade
-    to local state) and counts it, with its bytes and seconds, in its trace plane; both
-    come to the port with those planes, at this call.
+    Every collective of this module goes through here, and through the robust sync
+    guard (``robust/degraded.py``): unconfigured, a direct call; configured, a timeout
+    and bounded retries whose exhaustion raises ``CollectiveError``, which
+    ``Metric.sync`` turns into a local-only degrade. Only the ``all_gather`` itself
+    runs under the guard (in its worker thread when a timeout is set); the staging
+    through host memory stays on the caller's thread. While tracing is on, each
+    collective is counted with its bytes and seconds, as the JAX package counts its
+    ``process_allgather``.
     """
     staged = stages_through_host(x, process_group)
     payload = (x.detach().cpu() if staged else x.detach()).contiguous()
     parts = [torch.empty_like(payload) for _ in range(dist.get_world_size(process_group))]
-    dist.all_gather(parts, payload, group=process_group)
+    if not _trace.ENABLED:
+        guarded_collective(dist.all_gather, parts, payload, group=process_group, description=description)
+    else:
+        nbytes = payload.numel() * payload.element_size()
+        start = time.perf_counter()
+        try:
+            guarded_collective(dist.all_gather, parts, payload, group=process_group, description=description)
+        except Exception:
+            elapsed = time.perf_counter() - start
+            _trace.inc("sync.collective_failed", op=description)
+            _trace.observe_duration("sync.collective", elapsed, op=description, ok="false")
+            _trace.event("sync.collective", op=description, seconds=round(elapsed, 6), bytes=nbytes, ok=False)
+            raise
+        elapsed = time.perf_counter() - start
+        _trace.inc("sync.collectives", op=description)
+        _trace.inc("sync.payload_bytes", value=nbytes, op=description)
+        _trace.observe_duration("sync.collective", elapsed, op=description, ok="true")
+        _trace.event("sync.collective", op=description, seconds=round(elapsed, 6), bytes=nbytes, ok=True)
     gathered = torch.stack(parts)
     return gathered.to(x.device) if staged else gathered
 
@@ -74,25 +103,34 @@ def _group_device(process_group: Optional[Any] = None) -> torch.device:
     return torch.device("cpu")
 
 
-def allgather_host_payloads(payload: bytes, process_group: Optional[Any] = None) -> List[bytes]:
+def allgather_host_payloads(
+    payload: bytes, process_group: Optional[Any] = None, description: str = "host payload gather"
+) -> List[bytes]:
     """Gather one variable-length byte payload from every rank, in rank order.
 
-    Two collectives: an int32 length exchange, then the padded uint8 payloads. One
-    process, or no process group, returns ``[payload]`` without a collective.
+    The transport of host-side data: the cross-rank telemetry aggregation
+    (``obs/aggregate.py``) ships JSON snapshots through it. Two collectives, both
+    through :func:`_all_gather` and therefore through the robust sync guard: an int32
+    length exchange, then the padded uint8 payloads. A hung rank surfaces as
+    ``CollectiveError`` for the caller to degrade on, not as a hang. One process, or
+    no process group, returns ``[payload]`` without a collective.
     """
+    if _trace.ENABLED:
+        # how many bytes this rank contributes to a fleet snapshot
+        _trace.set_gauge("memory.snapshot_payload_bytes", float(len(payload)), op=description)
     if not distributed_available():
         return [bytes(payload)]
     device = _group_device(process_group)
     data = torch.frombuffer(bytearray(payload), dtype=torch.uint8) if payload else torch.zeros(0, dtype=torch.uint8)
     size = torch.tensor([data.numel()], dtype=torch.int32, device=device)
-    sizes = _all_gather(size, process_group).reshape(-1).tolist()
+    sizes = _all_gather(size, process_group, f"{description} (sizes)").reshape(-1).tolist()
     max_size = max(sizes, default=0)
     if max_size == 0:
         # every rank saw the same sizes, so every rank skips the payload collective
         return [b"" for _ in sizes]
     padded = torch.zeros(max_size, dtype=torch.uint8, device=device)
     padded[: data.numel()] = data.to(device)
-    gathered = _all_gather(padded, process_group).cpu()
+    gathered = _all_gather(padded, process_group, f"{description} (payload)").cpu()
     return [gathered[i, :size].numpy().tobytes() for i, size in enumerate(sizes)]
 
 
@@ -152,7 +190,7 @@ def _allgather_ragged_dim0(x: Tensor, process_group: Optional[Any]) -> Tensor:
     """
     trail = tuple(x.shape[1:])
     desc = torch.from_numpy(_encode_descriptor(x.shape[0], trail, x.dtype)).to(x.device)
-    g_desc = _all_gather(desc, process_group).cpu().numpy()
+    g_desc = _all_gather(desc, process_group, "ragged descriptor exchange").cpu().numpy()
     sizes = g_desc[:, 0]
     max_size = int(sizes.max()) if sizes.size else 0
     # rows win; with zero rows everywhere, a typed empty tensor (trailing dims or another
@@ -177,7 +215,7 @@ def _allgather_ragged_dim0(x: Tensor, process_group: Optional[Any]) -> Tensor:
     if max_size == 0:
         return x
     padded = torch.cat((x, x.new_zeros((max_size - x.shape[0], *x.shape[1:]))))
-    gathered = _all_gather(padded, process_group)  # [world, max, ...]
+    gathered = _all_gather(padded, process_group, "ragged payload gather")  # [world, max, ...]
     return torch.cat([gathered[i, : int(size)] for i, size in enumerate(sizes)])
 
 
@@ -216,7 +254,7 @@ def _sync_leaf(x: Tensor, reduction: Reduction, process_group: Optional[Any]) ->
         return _allgather_ragged_dim0(x, process_group)
     if reduction == Reduction.NONE:
         return x
-    gathered = _all_gather(x, process_group)  # [world, ...]
+    gathered = _all_gather(x, process_group, f"{reduction} leaf gather")  # [world, ...]
     if reduction == Reduction.SUM:
         return gathered.sum(dim=0, dtype=x.dtype)
     if reduction == Reduction.MEAN:
@@ -260,9 +298,9 @@ def sync_state(
         red = Reduction(reductions.get(name, Reduction.NONE))
         if isinstance(value, MaskedBuffer):
             if available:
-                data = _all_gather(value.data, process_group)
+                data = _all_gather(value.data, process_group, "masked-buffer data gather")
                 counts = _all_gather(torch.tensor(value.count, dtype=torch.int32, device=value.data.device),
-                                     process_group)
+                                     process_group, "masked-buffer count gather")
                 value = value.concat_gathered(data, counts.tolist())
             out[name] = value
             continue
@@ -293,4 +331,4 @@ def gather_all_tensors(x: Tensor, process_group: Optional[Any] = None) -> List[T
     process group. Ragged data is padded and masked by the caller (:func:`pad_dim0`)."""
     if not distributed_available():
         return [x]
-    return list(_all_gather(x, process_group).unbind(0))
+    return list(_all_gather(x, process_group, "gather_all_tensors").unbind(0))

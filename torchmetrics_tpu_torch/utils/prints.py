@@ -14,6 +14,8 @@ from typing import Any, Callable
 
 import torch
 
+import torchmetrics_tpu_torch.obs.trace as _trace
+
 
 def _get_rank() -> int:
     if torch.distributed.is_available() and torch.distributed.is_initialized():
@@ -42,4 +44,10 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, *args: Any, **kwargs: Any) -> None:
     kwargs.setdefault("stacklevel", 5)
+    # With obs tracing enabled, warnings also land in the telemetry event log (so
+    # degraded-sync and quarantine warnings reach the exported JSONL and Prometheus
+    # text, not only stderr) and a repeated message is deduplicated: the repeat
+    # bumps the `warnings.deduplicated` counter instead of warning again.
+    if _trace.ENABLED and not _trace.record_warning(str(message)):
+        return
     warnings.warn(message, *args, **kwargs)
