@@ -195,6 +195,23 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
+18. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+   package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
+   multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
+   12-tenant flash crowd after its controller-off control arm) replay their seeded
+   schedules through ``chaos.replay`` with every tenant on the card, while a scraper
+   thread reads the live server; each is judged by its SLO spec with JAX's thresholds
+   and prefix. One line per scenario gives its wall seconds, updates per second,
+   batches fed, SLOs passed and failed, the server-side scrape p95/p99 per route, time
+   to fire and to resolve each fault, captured variants and capture seconds, moves,
+   migration, recovery, detection and failover seconds, convergence, and the K1–K5
+   launches (none: the chaos tenants run micro accuracy, MSE and ``CatMetric``). Then
+   the default scenario runs at ImageNet width (1000 classes, batches of 256 and 500),
+   judged by the default spec, and again with ``device="cpu"``. It fails unless every
+   SLO of every scenario passes, and the two ImageNet-width runs share their batches,
+   faults, named poisoned batches, fired-and-resolved alert episodes and robust
+   counters, with every tenant's final states and value equal (the victim's MSE sums
+   within 1e-6 relative, all else bitwise).
 
 Both eval phases run the same loop again with ``device="cpu"`` and require equal
 integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
@@ -259,6 +276,11 @@ included).
     python3 chip_smoke.py --fleet-eval
 
 builds the kernels and prints only the ``fleet_eval`` phase's line (its checks
+included).
+
+    python3 chip_smoke.py --chaos-eval
+
+builds the kernels and prints only the ``chaos_eval`` phase's lines (its checks
 included).
 
 ``bound_ms`` is the larger of the bytes a kernel must move over the memory rate and
@@ -4658,6 +4680,190 @@ def fleet_eval_phase() -> dict:
             "cli": demo, "plane_cost": cost, "launches": launches}
 
 
+# -------------------------------------------------------------------------- chaos
+
+CHAOS_SEED = 0
+CHAOS_TENANTS = 8
+CHAOS_HIGH_TENANTS = 64
+CHAOS_FLASH_TENANTS = 12
+# the default scenario again at ImageNet width, then its CPU twin
+CHAOS_WIDE = {"seed": 0, "tenants": 8, "num_classes": 1000, "batch_sizes": (256, 500)}
+CHAOS_MSE_RTOL = 1e-6
+CHAOS_TIME_KEYS = ("migration_seconds", "recovery_seconds", "time_to_detect_seconds", "time_to_failover_seconds",
+                   "time_to_detect_imbalance_seconds")
+
+
+def chaos_scenarios() -> list:
+    """(name, schedule config, replay configs, spec factory, prefix) of the seven scenarios,
+    as the JAX package's ``bench.py --chaos`` runs them; a flash crowd's control arm first."""
+    from torchmetrics_tpu_torch import chaos
+
+    default = chaos.ScheduleConfig(seed=CHAOS_SEED, tenants=CHAOS_TENANTS)
+    return [
+        ("default", default, [{}], chaos.SLOSpec, "chaos"),
+        ("high_tenant", chaos.high_tenant_config(seed=CHAOS_SEED, tenants=CHAOS_HIGH_TENANTS),
+         [{"multiplex": True, "mux_max_width": CHAOS_HIGH_TENANTS}], chaos.high_tenant_slo_spec, "chaos_ht"),
+        ("rolling_deploy", default, [{"rolling_deploy": True}], chaos.rolling_deploy_slo_spec, "chaos_rd"),
+        ("host_crash", default, [{"host_crash": True}], chaos.host_crash_slo_spec, "chaos_hc"),
+        ("hung_host", default, [{"hung_host": True}], chaos.hung_host_slo_spec, "chaos_hh"),
+        ("skewed_load", chaos.skewed_load_config(seed=CHAOS_SEED, tenants=CHAOS_TENANTS), [{"skewed_load": True}],
+         chaos.skewed_load_slo_spec, "chaos_sk"),
+        ("flash_crowd", chaos.flash_crowd_config(seed=CHAOS_SEED, tenants=CHAOS_FLASH_TENANTS),
+         [{"flash_crowd": True, "placement_enabled": False}, {"flash_crowd": True}], chaos.flash_crowd_slo_spec,
+         "chaos_fc"),
+    ]
+
+
+def chaos_replay(schedule, device: str = "cuda", **config) -> tuple:
+    """``chaos.replay`` of ``schedule`` on ``device``, with the tenants' metrics as the run
+    left them (read through the replay's tenant factory)."""
+    import importlib
+
+    replay_mod = importlib.import_module("torchmetrics_tpu_torch.chaos.replay")
+    built = {}
+    original = replay_mod._build_tenants
+
+    def build(*args, **kwargs):
+        out = original(*args, **kwargs)
+        built["metrics"] = out[0]
+        return out
+
+    replay_mod._build_tenants = build
+    try:
+        result = replay_mod.replay(schedule, replay_mod.ReplayConfig(device=device, **config))
+    finally:
+        replay_mod._build_tenants = original
+    return result, built["metrics"]
+
+
+def chaos_summary(name: str, result: dict, report: dict, launches: dict, seconds: float) -> dict:
+    """One scenario's line: throughput, SLOs, server-side scrape quantiles per route, time
+    to fire and resolve, captured variants and capture seconds, the recovery walls, the
+    kernel launches."""
+    from torchmetrics_tpu_torch.obs.export import histogram_quantile
+
+    scrape = {route: {"count": hist.get("count"), "p95_s": histogram_quantile(hist["buckets"], 0.95),
+                      "p99_s": histogram_quantile(hist["buckets"], 0.99)}
+              for route, hist in sorted((result["scrapes"].get("server") or {}).items()) if hist.get("buckets")}
+    rows = {row["slo"]: row["value"] for row in report["slos"]}
+    placement = result.get("placement") or {}
+    return {
+        "scenario": name, "seconds": seconds, "wall_s": result["wall_seconds"],
+        "updates_per_s": result["updates_per_second"], "batches_fed": result["batches_fed"],
+        "slos_passed": report["n_slos"] - len(report["failed"]), "slos_failed": report["failed"],
+        "scrape": scrape,
+        "time_to": {k: v for k, v in rows.items() if k.startswith(("time_to_fire", "time_to_resolve"))},
+        "captured_variants": result["cost"]["compiled_variants"], "capture_s": result["cost"]["compile_seconds"],
+        "moves": placement.get("moves_completed"), "post_shift_moves": placement.get("post_shift_moves"),
+        "convergence_s": placement.get("convergence_seconds"),
+        "throughput_ratio": rows.get("placement_throughput_ratio"),
+        **{key: rows.get(key) for key in CHAOS_TIME_KEYS},
+        "launches": launches,
+    }
+
+
+def chaos_events(result: dict) -> dict:
+    """What two runs of one schedule must share: faults, named poisoned batches, alert
+    episodes that fired and resolved, quarantines and degraded syncs."""
+    return {
+        "batches_fed": result["batches_fed"],
+        "faults": [(f["fault"], f["tenant"], f.get("batch_index")) for f in result["faults"]],
+        "named": sorted({(d["tenant"], i) for d in result["flight"]["dumps"] for i in d["poisoned_batches"]}),
+        "episodes": sorted({(e["rule"], e["tenant"]) for e in result["alerts"]["episodes"]
+                            if e.get("fired_at") is not None and e.get("resolved_at") is not None}),
+        "robust": result["robust"],
+    }
+
+
+def chaos_states_equal(card: dict, cpu: dict, victim: str) -> dict:
+    """Every tenant's final state and value, card against CPU: the victim's MSE sums within
+    1e-6 relative, everything else (counts, buffers) bitwise."""
+    import torch
+
+    checked = {}
+    for tenant in sorted(card):
+        got = {**card[tenant].state_dict(persistent_only=False), "value": card[tenant].compute()}
+        want = {**cpu[tenant].state_dict(persistent_only=False), "value": cpu[tenant].compute()}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"chaos_eval: {tenant}'s states differ in keys: {sorted(got)} / {sorted(want)}")
+        for key in got:
+            g, w = torch.as_tensor(got[key]).cpu(), torch.as_tensor(want[key]).cpu()
+            if tenant == victim and g.is_floating_point():
+                ok = g.shape == w.shape and torch.allclose(g, w, rtol=CHAOS_MSE_RTOL, atol=0.0, equal_nan=True)
+            else:
+                ok = bitwise_equal(g, w)
+            if not ok:
+                raise AssertionError(f"chaos_eval: {tenant}.{key} on the card {g} differs from the CPU's {w}")
+        checked[tenant] = type(card[tenant]).__name__
+    return checked
+
+
+def chaos_eval_phase() -> dict:
+    """The chaos plane on the card: the seven scenarios of the JAX package's
+    ``bench.py --chaos``, each judged by its SLO spec, then the default scenario at
+    ImageNet width against its CPU twin."""
+    import torch
+
+    from torchmetrics_tpu_torch import chaos
+    from torchmetrics_tpu_torch.ops import kernels
+
+    scenarios, failed = [], {}
+    for name, schedule_config, configs, spec_fn, prefix in chaos_scenarios():
+        schedule = chaos.generate(schedule_config)
+        arms = []
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for config in configs:
+            arms.append(chaos_replay(schedule, **config)[0])
+        torch.cuda.synchronize()
+        launches = {kernel: kernels.LAUNCHES.get(kernel, 0) for kernel in KERNEL_SOURCES}
+        result = arms[-1]
+        if len(arms) == 2:  # the flash crowd's controller-off control arm, as bench.py joins it
+            control = arms[0]
+            result["placement"]["control_arm_updates_per_second"] = control["updates_per_second"]
+            result["placement"]["control_arm"] = {
+                "batches_fed": control["batches_fed"], "wall_seconds": control["wall_seconds"],
+                "sleep_seconds": control["sleep_seconds"], "compile_seconds": control["cost"]["compile_seconds"],
+                "updates_per_second": control["updates_per_second"]}
+        report = chaos.judge(result, spec_fn(), prefix=prefix)
+        summary = chaos_summary(name, result, report, launches, time.perf_counter() - t0)
+        emit({"phase": "chaos_eval", **summary})
+        scenarios.append(summary)
+        if not report["passed"]:
+            failed[name] = chaos.format_report(report)
+
+    # the default scenario at ImageNet width on the card, then the same schedule on the CPU
+    schedule = chaos.generate(chaos.ScheduleConfig(**CHAOS_WIDE))
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    card, card_metrics = chaos_replay(schedule)
+    torch.cuda.synchronize()
+    launches = {kernel: kernels.LAUNCHES.get(kernel, 0) for kernel in KERNEL_SOURCES}
+    report = chaos.judge(card, chaos.SLOSpec(), prefix="chaos")
+    wide = chaos_summary("default_imagenet_width", card, report, launches, time.perf_counter() - t0)
+    emit({"phase": "chaos_eval", **wide})
+    scenarios.append(wide)
+    if not report["passed"]:
+        failed["default_imagenet_width"] = chaos.format_report(report)
+    t0 = time.perf_counter()
+    cpu, cpu_metrics = chaos_replay(schedule, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if chaos_events(card) != chaos_events(cpu):
+        raise AssertionError(f"chaos_eval: the card's ImageNet-width run {chaos_events(card)} differs from the"
+                             f" CPU's {chaos_events(cpu)}")
+    checked = chaos_states_equal(card_metrics, cpu_metrics, schedule.victim)
+    if failed:
+        raise AssertionError("chaos_eval: SLOs failed on the card:\n" + "\n".join(failed.values()))
+    total = {kernel: sum(s["launches"][kernel] for s in scenarios) for kernel in KERNEL_SOURCES}
+    return {"phase": "chaos_eval", "scenarios": {s["scenario"]: {k: s[k] for k in (
+                "wall_s", "updates_per_s", "batches_fed", "slos_passed", "captured_variants", "capture_s")}
+                for s in scenarios},
+            "imagenet_width": {"events": chaos_events(card), "tenants_equal_cpu": checked, "cpu_replay_s": cpu_s},
+            "launches": total}
+
+
 # --------------------------------------------------------------------------- main
 
 
@@ -4722,6 +4928,11 @@ def main() -> int:
     if "--fleet-eval" in sys.argv[1:]:
         t0 = time.perf_counter()
         emit({**fleet_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
+              "phase_wall_s": time.perf_counter() - t0})
+        return 0
+    if "--chaos-eval" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        emit({**chaos_eval_phase(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
               "phase_wall_s": time.perf_counter() - t0})
         return 0
     t0 = time.perf_counter()
@@ -4818,6 +5029,10 @@ def main() -> int:
     fleet_record = fleet_eval_phase()
     phases.append(fleet_record)
     emit({**fleet_record, "card": smi, "phase_wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    chaos_record = chaos_eval_phase()
+    phases.append(chaos_record)
+    emit({**chaos_record, "card": smi, "phase_wall_s": time.perf_counter() - t0})
 
     line = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

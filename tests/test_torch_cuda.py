@@ -2116,3 +2116,125 @@ def test_a_served_session_equals_its_plain_version_run(card, kind):
     for name in plain.keys(keep_base=True):
         for key, want in plain[name].state_dict(persistent_only=False).items():
             _compare(served[name].state_dict(persistent_only=False)[key], want)
+
+
+def test_a_restore_from_a_scrape_thread_mid_feed_replays_bitwise_its_unmoved_control(card, monkeypatch):
+    """The flash-crowd chaos replay on the card: the placement controller, ticked by a
+    ``/metrics`` scrape on a server thread, moves sessions (drain, checkpoint, restore,
+    swap) while the schedule's feeding loop runs. Each restore runs off the main thread,
+    inside the run, under the replay's device lock; the restored sessions replay their
+    captured graphs, and every moved session computes bitwise its unmoved shadow
+    control fed the same stream."""
+    import threading
+    import time
+
+    from torchmetrics_tpu_torch import chaos
+    from torchmetrics_tpu_torch.engine import migrate
+
+    restores, real = [], migrate.restore_session
+
+    def spy(*args, **kwargs):
+        pipe, manifest = real(*args, **kwargs)
+        restores.append((threading.current_thread() is threading.main_thread(), time.time(), pipe))
+        return pipe, manifest
+
+    monkeypatch.setattr(migrate, "restore_session", spy)
+    result = chaos.replay(chaos.generate(chaos.flash_crowd_config()), chaos.ReplayConfig(flash_crowd=True))
+    torch.cuda.synchronize()
+    placement = result["placement"]
+    assert placement["moves_completed"] >= 1 and restores
+    end = result["wall_start_unix"] + result["wall_seconds"]
+    assert all(not on_main and result["wall_start_unix"] <= at <= end for on_main, at, _ in restores)
+    assert sum(info["replays"] for _, _, pipe in restores for info in pipe.cache_info()) > 0
+    assert placement["zero_loss"] is True and placement["controls"]
+    assert all(row["bit_identical"] for row in placement["controls"].values())
+
+
+def test_a_default_chaos_replay_on_the_card_equals_the_same_schedule_on_the_cpu(card):
+    """The default chaos scenario (the JAX suite's small schedule) on the card and on the
+    CPU: the same batches fed, faults, named poisoned batches, fired-and-resolved alert
+    episodes and robust counters, and every tenant's final states and value (counts and
+    accuracies bitwise, the victim's MSE within 1e-6 relative)."""
+    import importlib
+
+    from torchmetrics_tpu_torch import chaos
+
+    replay_mod = importlib.import_module("torchmetrics_tpu_torch.chaos.replay")
+    schedule = chaos.generate(chaos.ScheduleConfig(seed=0, tenants=8, warm_batches=2, churn_batches=2,
+                                                   drain_batches=3, hang_seconds=0.5, absent_after_seconds=0.15,
+                                                   idle_gap_seconds=0.01))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        built, original = {}, replay_mod._build_tenants
+
+        def build(*args, _original=original, _built=built, **kwargs):
+            out = _original(*args, **kwargs)
+            _built["metrics"] = out[0]
+            return out
+
+        replay_mod._build_tenants = build
+        try:
+            result = chaos.replay(schedule, chaos.ReplayConfig(fuse=1, scrape_interval_seconds=0.03,
+                                                                sync_timeout_seconds=0.02, device=device))
+        finally:
+            replay_mod._build_tenants = original
+        runs[device] = (result, built["metrics"])
+
+    def events(result):
+        return (result["batches_fed"], [(f["fault"], f["tenant"], f.get("batch_index")) for f in result["faults"]],
+                {(d["tenant"], i) for d in result["flight"]["dumps"] for i in d["poisoned_batches"]},
+                {(e["rule"], e["tenant"]) for e in result["alerts"]["episodes"]
+                 if e.get("fired_at") is not None and e.get("resolved_at") is not None},
+                result["robust"])
+
+    (card_result, card_metrics), (cpu_result, cpu_metrics) = runs["cuda"], runs["cpu"]
+    assert events(card_result) == events(cpu_result)
+    assert card_result["robust"]["sync_degraded"] == [schedule.hung]
+    for tenant in sorted(cpu_metrics):
+        got = {**card_metrics[tenant].state_dict(persistent_only=False), "value": card_metrics[tenant].compute()}
+        want = {**cpu_metrics[tenant].state_dict(persistent_only=False), "value": cpu_metrics[tenant].compute()}
+        assert sorted(got) == sorted(want)
+        for key in want:
+            g, w = got[key].cpu(), want[key]
+            if tenant == schedule.victim and w.is_floating_point():
+                torch.testing.assert_close(g, w, rtol=1e-6, atol=0.0)
+            else:
+                assert g.dtype == w.dtype and torch.equal(g, w), (tenant, key)
+
+
+def test_plot_of_card_metrics_copies_to_the_host_or_raises_without_matplotlib(card):
+    """``plot`` of metrics whose states and values live on the card: with matplotlib the
+    figure holds the CPU twin's data (values copied to the host first); without it (the
+    chip machine has none) ``plot`` raises the JAX package's error."""
+    from torchmetrics_tpu_torch.utils import plot as plot_mod
+
+    g = torch.Generator().manual_seed(5)
+    preds, target = torch.rand(64, 4, generator=g), torch.randint(0, 4, (64,), generator=g)
+    pairs = []
+    for make in (lambda d: tc.MulticlassConfusionMatrix(4, device=d), lambda d: tc.MulticlassROC(4, device=d),
+                 lambda d: tc.MulticlassAccuracy(4, average=None, device=d)):
+        on_card, on_cpu = make(card), make("cpu")
+        on_card.update(preds.to(card), target.to(card))
+        on_cpu.update(preds, target)
+        pairs.append((on_card, on_cpu))
+    if not plot_mod._MATPLOTLIB_AVAILABLE:
+        for on_card, _ in pairs:
+            with pytest.raises(ModuleNotFoundError, match="matplotlib is required for plotting but is not installed."):
+                on_card.plot()
+        return
+    import matplotlib
+
+    matplotlib.use("Agg", force=True)
+    import matplotlib.pyplot as plt
+
+    for on_card, on_cpu in pairs:
+        (fig_a, ax_a), (fig_b, ax_b) = on_card.plot()[:2], on_cpu.plot()[:2]
+        for a, b in zip(fig_a.axes, fig_b.axes):
+            assert [ln.get_label() for ln in a.lines] == [ln.get_label() for ln in b.lines]
+            for la, lb in zip(a.lines, b.lines):
+                torch.testing.assert_close(torch.as_tensor(la.get_ydata()), torch.as_tensor(lb.get_ydata()))
+            for ia, ib in zip(a.images, b.images):
+                assert (ia.get_array() == ib.get_array()).all()
+            assert [t.get_text() for t in a.texts] == [t.get_text() for t in b.texts]
+        plt.close(fig_a)
+        plt.close(fig_b)

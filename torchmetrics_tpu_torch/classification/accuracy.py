@@ -44,6 +44,7 @@ class MulticlassAccuracy(MulticlassStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def compute(self) -> Tensor:
         """Accuracy from per-class counts."""
@@ -61,6 +62,7 @@ class MultilabelAccuracy(MultilabelStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def compute(self) -> Tensor:
         """Accuracy from per-label counts."""

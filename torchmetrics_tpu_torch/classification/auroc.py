@@ -16,6 +16,7 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     _curve_state,
 )
+from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.functional.classification.auroc import (
     _binary_auroc_arg_validation,
     _binary_auroc_compute,
@@ -64,6 +65,7 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def __init__(
         self,
@@ -97,6 +99,7 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def __init__(
         self,
@@ -150,3 +153,10 @@ class AUROC(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
             return MultilabelAUROC(num_labels, average, **kwargs)
         raise ValueError(f"Task {task} not supported!")
+
+
+# These classes inherit curve/heatmap state handling but compute scalars;
+# restore the base single-value plot, as the JAX package does.
+for _cls in (BinaryAUROC, MulticlassAUROC, MultilabelAUROC):
+    _cls.plot = Metric.plot
+del _cls

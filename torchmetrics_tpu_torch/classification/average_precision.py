@@ -16,6 +16,7 @@ from torchmetrics_tpu_torch.classification.precision_recall_curve import (
     MultilabelPrecisionRecallCurve,
     _curve_state,
 )
+from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.functional.classification.auroc import _validate_average_arg
 from torchmetrics_tpu_torch.functional.classification.average_precision import (
     _binary_average_precision_compute,
@@ -49,6 +50,7 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def __init__(
         self,
@@ -84,6 +86,7 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def __init__(
         self,
@@ -136,3 +139,10 @@ class AveragePrecision(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
             return MultilabelAveragePrecision(num_labels, average, **kwargs)
         raise ValueError(f"Task {task} not supported!")
+
+
+# These classes inherit curve/heatmap state handling but compute scalars;
+# restore the base single-value plot, as the JAX package does.
+for _cls in (BinaryAveragePrecision, MulticlassAveragePrecision, MultilabelAveragePrecision):
+    _cls.plot = Metric.plot
+del _cls

@@ -12,6 +12,7 @@ import torch
 
 from torchmetrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from torchmetrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
+from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.functional.classification.cohen_kappa import (
     _cohen_kappa_arg_validation,
     _cohen_kappa_reduce,
@@ -99,3 +100,10 @@ class CohenKappa(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)} was passed.`")
             return MulticlassCohenKappa(num_classes, **kwargs)
         raise ValueError(f"Task {task} not supported!")
+
+
+# These classes inherit curve/heatmap state handling but compute scalars;
+# restore the base single-value plot, as the JAX package does.
+for _cls in (BinaryCohenKappa, MulticlassCohenKappa):
+    _cls.plot = Metric.plot
+del _cls

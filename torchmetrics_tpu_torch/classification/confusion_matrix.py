@@ -72,6 +72,13 @@ class BinaryConfusionMatrix(Metric):
         """The (optionally normalized) confusion matrix."""
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
 
+    def plot(self, val: Optional[Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None):
+        """Heatmap plot of the confusion matrix (``compute()`` when ``val`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
+
 
 class MulticlassConfusionMatrix(Metric):
     """Multiclass [C, C] confusion matrix (rows = target, cols = prediction)."""
@@ -110,6 +117,13 @@ class MulticlassConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """The (optionally normalized) confusion matrix."""
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+
+    def plot(self, val: Optional[Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None):
+        """Heatmap plot of the confusion matrix (``compute()`` when ``val`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
 
 
 class MultilabelConfusionMatrix(Metric):
@@ -153,6 +167,13 @@ class MultilabelConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """The (optionally normalized) confusion matrices."""
         return _multilabel_confusion_matrix_compute(self.confmat, self.normalize)
+
+    def plot(self, val: Optional[Tensor] = None, ax: Any = None, add_text: bool = True, labels: Any = None):
+        """Heatmap plot of the confusion matrix (``compute()`` when ``val`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+        val = val if val is not None else self.compute()
+        return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels)
 
 
 class ConfusionMatrix(_ClassificationTaskWrapper):

@@ -71,6 +71,7 @@ class MulticlassFBetaScore(MulticlassStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def __init__(
         self,
@@ -116,6 +117,7 @@ class MultilabelFBetaScore(MultilabelStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def __init__(
         self,

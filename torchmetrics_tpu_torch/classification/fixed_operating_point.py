@@ -535,3 +535,29 @@ class SensitivityAtSpecificity(_ClassificationTaskWrapper):
             return MultilabelSensitivityAtSpecificity(num_labels, min_specificity, **kwargs)
         raise ValueError(f"Task {task} not supported!")
 
+
+def _plot_value_only(self, val=None, ax=None):
+    """Plot the operating-point *value*, not the (value, threshold) tuple: the
+    threshold is an operating point on its own scale, not a metric value."""
+    val = val if val is not None else self.compute()[0]
+    return self._plot(val, ax)
+
+
+# These classes inherit the curve plot from the PR-curve state machinery but compute
+# (value, threshold) pairs; they plot the value alone, as the JAX package's do.
+for _cls in (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    BinarySensitivityAtSpecificity,
+    MulticlassSensitivityAtSpecificity,
+    MultilabelSensitivityAtSpecificity,
+):
+    _cls.plot = _plot_value_only
+del _cls

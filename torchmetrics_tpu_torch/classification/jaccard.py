@@ -16,6 +16,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.functional.classification.jaccard import (
     _jaccard_index_arg_validation,
     _jaccard_index_reduce,
@@ -58,6 +59,7 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def __init__(
         self,
@@ -89,6 +91,7 @@ class MultilabelJaccardIndex(MultilabelConfusionMatrix):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def __init__(
         self,
@@ -141,3 +144,10 @@ class JaccardIndex(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
             return MultilabelJaccardIndex(num_labels, threshold, average, **kwargs)
         raise ValueError(f"Task {task} not supported!")
+
+
+# These classes inherit curve/heatmap state handling but compute scalars;
+# restore the base single-value plot, as the JAX package does.
+for _cls in (BinaryJaccardIndex, MulticlassJaccardIndex, MultilabelJaccardIndex):
+    _cls.plot = Metric.plot
+del _cls

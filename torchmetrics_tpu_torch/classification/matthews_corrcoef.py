@@ -16,6 +16,7 @@ from torchmetrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from torchmetrics_tpu_torch.core.metric import Metric
 from torchmetrics_tpu_torch.functional.classification.matthews_corrcoef import _matthews_corrcoef_reduce
 from torchmetrics_tpu_torch.utils.enums import ClassificationTask
 
@@ -118,3 +119,10 @@ class MatthewsCorrCoef(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)} was passed.`")
             return MultilabelMatthewsCorrCoef(num_labels, threshold, **kwargs)
         raise ValueError(f"Task {task} not supported!")
+
+
+# These classes inherit curve/heatmap state handling but compute scalars;
+# restore the base single-value plot, as the JAX package does.
+for _cls in (BinaryMatthewsCorrCoef, MulticlassMatthewsCorrCoef, MultilabelMatthewsCorrCoef):
+    _cls.plot = Metric.plot
+del _cls

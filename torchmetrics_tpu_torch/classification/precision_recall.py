@@ -52,6 +52,7 @@ class _MulticlassPrecisionRecall(MulticlassStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Class"
 
     def __init__(self, *args: Any, zero_division: float = 0.0, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)
@@ -74,6 +75,7 @@ class _MultilabelPrecisionRecall(MultilabelStatScores):
     full_state_update: bool = False
     plot_lower_bound: float = 0.0
     plot_upper_bound: float = 1.0
+    plot_legend_name: str = "Label"
 
     def __init__(self, *args: Any, zero_division: float = 0.0, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)

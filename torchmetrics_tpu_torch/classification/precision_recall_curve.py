@@ -150,6 +150,13 @@ class BinaryPrecisionRecallCurve(Metric):
         """(precision, recall, thresholds)."""
         return _binary_precision_recall_curve_compute(_curve_state(self), self.thresholds)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
+
 
 class MulticlassPrecisionRecallCurve(Metric):
     """Multiclass (one-vs-rest) precision-recall curves, or one micro-averaged curve."""
@@ -213,6 +220,13 @@ class MulticlassPrecisionRecallCurve(Metric):
             return _binary_precision_recall_curve_compute(state, self.thresholds)
         return _multiclass_precision_recall_curve_compute(state, self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
+
 
 class MultilabelPrecisionRecallCurve(Metric):
     """Per-label precision-recall curves."""
@@ -264,6 +278,13 @@ class MultilabelPrecisionRecallCurve(Metric):
         return _multilabel_precision_recall_curve_compute(
             _curve_state(self), self.num_labels, self.thresholds, self.ignore_index
         )
+
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("Recall", "Precision"))
 
 
 class PrecisionRecallCurve(_ClassificationTaskWrapper):

@@ -35,6 +35,13 @@ class BinaryROC(BinaryPrecisionRecallCurve):
         """(fpr, tpr, thresholds)."""
         return _binary_roc_compute(_curve_state(self), self.thresholds)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the ROC curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """Multiclass one-vs-rest ROC curves, or one micro-averaged curve."""
@@ -46,6 +53,13 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
             return _binary_roc_compute(state, self.thresholds)
         return _multiclass_roc_compute(state, self.num_classes, self.thresholds, self.average)
 
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the ROC curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """Per-label ROC curves."""
@@ -53,6 +67,13 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
     def compute(self):
         """(fpr, tpr, thresholds) per label."""
         return _multilabel_roc_compute(_curve_state(self), self.num_labels, self.thresholds, self.ignore_index)
+
+    def plot(self, curve: Optional[Tuple] = None, score: Optional[Tensor] = None, ax: Any = None):
+        """Plot the ROC curve (``compute()`` when ``curve`` is None)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_curve
+
+        curve = curve or self.compute()
+        return plot_curve(curve, score=score, ax=ax, label_names=("False positive rate", "True positive rate"))
 
 
 class ROC(_ClassificationTaskWrapper):

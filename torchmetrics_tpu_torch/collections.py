@@ -24,7 +24,8 @@ leader once and commits the result to the whole group (``_engine_fusable_leaders
 ``_engine_commit``). A collection built under a tenant scope (``obs/scope.py``) is
 that tenant's: members without a tenant of their own take it. ``memory_footprint``
 sums the members' state bytes, an aliased compute-group state once (``obs/memory.py``);
-``plot`` comes with the plotting slice.
+``plot`` draws each member on its own figure, or all of them on one axis
+(``utils/plot.py``; matplotlib is optional).
 """
 
 from __future__ import annotations
@@ -406,6 +407,15 @@ class MetricCollection(torch.nn.ModuleDict):
         from torchmetrics_tpu_torch.obs import memory as _memory
 
         return _memory.footprint(self)
+
+    def plot(self, val: Any = None, ax: Any = None, together: bool = False) -> Any:
+        """Plot each metric (or, with ``together``, all of them on one axis)."""
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        if together:
+            return plot_single_or_multi_val(val if val is not None else self.compute(), ax=ax)
+        vals = val if val is not None else self.compute()
+        return [m.plot(vals.get(self._set_name(k)), ax=ax) for k, m in self._modules.items()]
 
     # ------------------------------------------------------------------- dict protocol
 

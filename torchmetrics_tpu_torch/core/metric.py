@@ -147,6 +147,7 @@ class Metric(torch.nn.Module, ABC):
 
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
 
     # declared range of the computed value, e.g. ``(0.0, 1.0)`` for accuracy — read
     # by the out-of-bounds value watchdog (obs/alerts.py). ``None`` defers to the plot
@@ -340,6 +341,25 @@ class Metric(torch.nn.Module, ABC):
         from torchmetrics_tpu_torch.obs import memory as _memory
 
         return _memory.footprint(self)
+
+    def plot(self, val: Any = None, ax: Any = None) -> Any:
+        """Plot a single or multiple values from the metric (``compute()`` when ``val``
+        is None); returns ``(figure, axes)``. Needs matplotlib."""
+        return self._plot(val, ax)
+
+    def _plot(self, val: Any = None, ax: Any = None) -> Any:
+        from torchmetrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=type(self).__name__,
+        )
 
     def _obs_labels(self) -> Dict[str, str]:
         """Tenant label for span/counter call sites (``obs/scope.py``): the ambient

@@ -124,9 +124,15 @@ def _leaf_row(value: Any, host_lists: bool = False) -> Dict[str, Any]:
     if buffer_cls is not None and isinstance(value, buffer_cls):
         data_bytes = _array_nbytes(value.data)
         item_bytes = data_bytes // value.capacity if value.capacity else 0
-        # the count may be a 0-d card tensor: reading it is one scalar transfer,
-        # acceptable for an explicit accounting call (never inside a capture)
-        fill_items = int(value.count)
+        # The count is a Python int between updates. It is a 0-d tensor only while an
+        # update of this metric traces or captures (``pure_update`` binds the traced
+        # state), and a scrape thread that read it on the card then would synchronise
+        # inside that capture and break it: mid-update the fill is billed full.
+        count = value.count
+        if isinstance(count, int) or not getattr(count, "is_cuda", False):
+            fill_items = int(count)
+        else:
+            fill_items = value.capacity
         fill_bytes = min(fill_items, value.capacity) * item_bytes
         return {
             "kind": KIND_BUFFER,

@@ -38,6 +38,7 @@ import torchmetrics_tpu_torch.obs.trace as _trace
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.parallel.reductions import Reduction
 from torchmetrics_tpu_torch.robust.degraded import guarded_collective
+from torchmetrics_tpu_torch.robust.faults import collective_faults_active
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 
 Tensor = torch.Tensor
@@ -71,9 +72,16 @@ def _all_gather(x: Tensor, process_group: Optional[Any], description: str = "all
     collective is counted with its bytes and seconds, as the JAX package counts its
     ``process_allgather``.
     """
-    staged = stages_through_host(x, process_group)
+    try:
+        world, staged = dist.get_world_size(process_group), stages_through_host(x, process_group)
+    except (RuntimeError, ValueError):
+        if not collective_faults_active():
+            raise
+        # a fault drill's claimed world with no process group (``distributed_available``
+        # patched): the armed fault takes the attempt in the guard, as in the JAX package
+        world, staged = 1, False
     payload = (x.detach().cpu() if staged else x.detach()).contiguous()
-    parts = [torch.empty_like(payload) for _ in range(dist.get_world_size(process_group))]
+    parts = [torch.empty_like(payload) for _ in range(world)]
     if not _trace.ENABLED:
         guarded_collective(dist.all_gather, parts, payload, group=process_group, description=description)
     else:
@@ -98,7 +106,13 @@ def _all_gather(x: Tensor, process_group: Optional[Any], description: str = "all
 
 def _group_device(process_group: Optional[Any] = None) -> torch.device:
     """Where a collective of host data runs: the current card for NCCL, else the CPU."""
-    if dist.get_backend(process_group) == dist.Backend.NCCL:
+    try:
+        nccl = dist.get_backend(process_group) == dist.Backend.NCCL
+    except (RuntimeError, ValueError):
+        if not collective_faults_active():
+            raise
+        nccl = False  # a fault drill without a process group, as in ``_all_gather``
+    if nccl:
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
