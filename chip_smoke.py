@@ -168,16 +168,48 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    ``MultitaskWrapper`` and ``BinaryTargetTransformer``. It fails unless every value
    equals its CPU twin (integers exactly, floats within 1e-5) and the confusion-matrix
    kernel was launched through the wrappers.
-16. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+16. ``clustering_eval``: ImageNet-1k validation clustered into 1000 clusters, the NMI /
+   AMI / ARI protocol of SCAN (Van Gansbeke et al., ECCV 2020): 50,000 seeded labels (50
+   a class) and a seeded clustering of them, fed in 100 batches of 500 to the nine
+   extrinsic classes, and 50,000 x 2048 float32 features (ResNet-50's pooled width)
+   around 1000 centroids fed with the clusters to Calinski-Harabasz, Davies-Bouldin and
+   the Dunn index. It prints each ``compute``'s value, seconds and bincount launches (one
+   each: the 1000 x 1000 contingency table, or the cluster counts) and fails unless every
+   value equals the same run on the CPU on all the data (1e-6; AMI 1e-5; the intrinsic
+   scores 1e-5 relative).
+17. ``nominal_eval``: the UCI Adult census's shape, 48,842 rows of its nine categorical
+   columns at their published cardinalities (workclass 9, education 16, marital-status
+   7, occupation 15, relationship 6, race 5, sex 2, native-country 42, income 2), about
+   7% NaN in workclass, occupation and native-country: the four ``*_matrix`` functions
+   under ``replace`` and ``drop`` (36 + 36 + 36 + 72 confusion-matrix launches each),
+   the four stateful classes over education and occupation in batches of 4,096 (one
+   launch an update), and ``FleissKappa`` over 100,000 items x 5 categories x 10 raters
+   in both modes. It fails unless the launches are those and every state equals the CPU
+   exactly and every value within 1e-6.
+18. ``segmentation_eval``: Cityscapes validation's shape, 1024 x 2048 index maps of 19
+   classes with 255 void, 100 images (cut from 500) in batches of 4: ``MeanIoU`` per
+   class or not, with and without background, and ``GeneralizedDiceScore`` (square
+   weights), one bincount launch a metric an update. The CPU twin runs on the first 8
+   images (states and values within 1e-6, the tables exactly), and one-hot input
+   (``[4, 19, 1024, 2048]``) on the same images must give the index route's scores. A
+   profile of two updates last splits their device time into the bincount kernel and
+   the id preparation around it.
+19. ``pairwise_eval``: retrieval embeddings at BERT-base width: cosine, linear and
+   Euclidean of 6,980 queries (MS MARCO dev-small) against 65,536 passages, x 768; then
+   Manhattan and Minkowski (p = 3) of 4,096 embeddings with themselves, zero diagonal,
+   whose peak memory must stay within three outputs (no ``[N, M, d]`` temporary).
+   The CPU computes the first 256 rows (cosine within 1e-5, the others within 1e-5 of
+   the matrix's largest magnitude).
+20. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    8 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-17. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+21. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-18. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+22. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -198,7 +230,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-19. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+23. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -224,7 +256,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-20. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+24. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -312,7 +344,8 @@ included).
 builds the kernels and prints only the ``chaos_eval`` phase's lines (its checks
 included).
 
-    python3 chip_smoke.py --retrieval-eval --wrappers-eval
+    python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
+        --segmentation-eval --pairwise-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -797,7 +830,9 @@ def bincount_case(n: int, c: int, seed: int, ids: str = "random", dtype=None):
     query ids of a reranking run (C queries, N / C candidates each) in a seeded order;
     "segments", the fairness update's bins of N CTR scores over (C - 1) / 4 segments;
     "grouped", the same ids grouped by query, as retrieval users pass them (runs of
-    N / C equal ids); "random", uniform in [0, C)."""
+    N / C equal ids); "cityscapes", the (target, pred) ids of a Cityscapes update's
+    per-image tables (``n * 20^2 + t' * 20 + p'``, void as bin 19); "random", uniform in
+    [0, C)."""
     import torch
 
     if ids == "queries":
@@ -806,6 +841,11 @@ def bincount_case(n: int, c: int, seed: int, ids: str = "random", dtype=None):
         x = segment_cell_ids(n, (c - 1) // 4, seed)
     elif ids == "grouped":
         x = torch.arange(c, device="cuda", dtype=torch.int32).repeat_interleave(n // c)
+    elif ids == "cityscapes":
+        preds, target = cityscapes_batch(seed, batch=n // (1024 * 2048))
+        side = CITYSCAPES_CLASSES + 1
+        image = torch.arange(preds.shape[0], device="cuda")[:, None, None]
+        x = ((image * side + target.clamp(max=CITYSCAPES_CLASSES)) * side + preds).reshape(-1)
     else:
         g = torch.Generator(device="cuda").manual_seed(seed)
         x = torch.randint(0, c, (n,), generator=g, device="cuda", dtype=torch.int32)
@@ -3561,6 +3601,452 @@ def wrappers_eval_phase() -> dict:
             "values": summary}
 
 
+# ------------------------------------------------- clustering, nominal, segmentation, pairwise
+
+# ImageNet-1k validation clustered into 1000 clusters, SCAN's NMI / AMI / ARI protocol
+# (Van Gansbeke et al., ECCV 2020): 50,000 labels (50 a class) fed in 100 batches of 500,
+# and 50,000 x 2048 float32 features (ResNet-50's pooled width) around 1000 centroids
+CLUSTER_SAMPLES = 50_000
+CLUSTER_CLASSES = 1000
+CLUSTER_BATCH = 500
+CLUSTER_FEATURES = 2048
+CLUSTER_EXTRINSIC = ("MutualInfoScore", "NormalizedMutualInfoScore", "AdjustedMutualInfoScore", "RandScore",
+                     "AdjustedRandScore", "FowlkesMallowsIndex", "HomogeneityScore", "CompletenessScore",
+                     "VMeasureScore")
+CLUSTER_INTRINSIC = ("CalinskiHarabaszScore", "DaviesBouldinScore", "DunnIndex")
+CLUSTER_ATOL = 1e-6
+CLUSTER_AMI_ATOL = 1e-5  # its expected mutual information is summed in another order
+CLUSTER_INTRINSIC_RTOL = 1e-5  # float32 products and sums of 10^8 terms in another order
+
+
+def imagenet_clusters(n: int = CLUSTER_SAMPLES, classes: int = CLUSTER_CLASSES, features: int = CLUSTER_FEATURES,
+                      seed: int = 41, device: str = "cuda"):
+    """The validation labels (``n / classes`` a class, shuffled), a clustering of them (60%
+    of the samples in their class's cluster under a seeded relabelling, the rest in a
+    uniform one), and float32 features drawn around one centroid a class."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    target = torch.arange(classes, device=device).repeat_interleave(n // classes)
+    target = target[torch.randperm(n, generator=g, device=device)]
+    relabel = torch.randperm(classes, generator=g, device=device)
+    noise = torch.randint(0, classes, (n,), generator=g, device=device)
+    preds = torch.where(torch.rand(n, generator=g, device=device) < 0.6, relabel[target], noise)
+    centroids = torch.randn(classes, features, generator=g, device=device) * 0.5
+    data = centroids[target] + torch.randn(n, features, generator=g, device=device)
+    return preds, target, data
+
+
+def clustering_run(device: str, preds, target, data) -> dict:
+    """The nine extrinsic classes over (``preds``, ``target``) and the three intrinsic ones
+    over (``data``, ``preds``) in batches of CLUSTER_BATCH on ``device``: each compute's
+    value, seconds and bincount launches, and on the card the seconds of a second, warm
+    compute (its value cache dropped)."""
+    import torch
+
+    from torchmetrics_tpu_torch import clustering as tcl
+    from torchmetrics_tpu_torch.ops import kernels
+
+    extrinsic = {name: getattr(tcl, name)(device=device) for name in CLUSTER_EXTRINSIC}
+    intrinsic = {name: getattr(tcl, name)(device=device) for name in CLUSTER_INTRINSIC}
+    t0 = time.perf_counter()
+    for start in range(0, preds.shape[0], CLUSTER_BATCH):
+        p, t, d = (a[start:start + CLUSTER_BATCH] for a in (preds, target, data))
+        for m in extrinsic.values():
+            m.update(p, t)
+        for m in intrinsic.values():
+            m.update(d, p)
+    feed_s = time.perf_counter() - t0
+    values, seconds, warm, launches = {}, {}, {}, {}
+    for name, m in {**extrinsic, **intrinsic}.items():
+        for run in range(1 if device == "cpu" else 2):  # the first compute; on the card a warm one too
+            m._computed = None
+            before = kernels.LAUNCHES["bincount"]
+            if device != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values[name] = m.compute()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            (warm if run else seconds)[name] = time.perf_counter() - t0
+            launches.setdefault(name, kernels.LAUNCHES["bincount"] - before)
+    return {"values": values, "compute_s": seconds, "warm_compute_s": warm, "bincount_per_compute": launches,
+            "feed_s": feed_s}
+
+
+def _clustering_tolerance(where: str):
+    if any(name in where for name in CLUSTER_INTRINSIC):
+        return 0.0, CLUSTER_INTRINSIC_RTOL
+    return (CLUSTER_AMI_ATOL if "AdjustedMutualInfo" in where else CLUSTER_ATOL), 0.0
+
+
+def clustering_eval_phase() -> dict:
+    """The twelve clustering classes over an ImageNet-1k validation clustering on the card,
+    against the same run on the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    preds, target, data = imagenet_clusters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = clustering_run("cuda", preds, target, data)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    wrong = {name: n for name, n in card["bincount_per_compute"].items() if n != 1}
+    if wrong:
+        raise AssertionError(f"clustering_eval: expected one bincount launch a compute, got {wrong}")
+    t0 = time.perf_counter()
+    cpu = clustering_run("cpu", preds.cpu(), target.cpu(), data.cpu())
+    cpu_wall = time.perf_counter() - t0
+    gap = compare(card["values"], cpu["values"], "value", _clustering_tolerance)
+    return {
+        "phase": "clustering_eval", "samples": CLUSTER_SAMPLES, "classes": CLUSTER_CLASSES,
+        "clusters": int(torch.unique(preds).numel()), "features": CLUSTER_FEATURES, "batches":
+        CLUSTER_SAMPLES // CLUSTER_BATCH, "launches": launches,
+        "values": {name: float(v) for name, v in card["values"].items()},
+        "compute_s": card["compute_s"], "warm_compute_s": card["warm_compute_s"],
+        "bincount_per_compute": card["bincount_per_compute"],
+        "feed_s": card["feed_s"], "wall_s": wall, "peak_memory_bytes": peak, "cpu_compute_s": cpu["compute_s"],
+        "cpu_feed_s": cpu["feed_s"], "cpu_wall_s": cpu_wall, "cpu_rows": CLUSTER_SAMPLES, "max_float_gap": gap,
+    }
+
+
+# The UCI Adult census (48,842 rows) at its nine categorical columns' published
+# cardinalities; about 7% NaN where Adult has "?"
+ADULT_ROWS = 48_842
+ADULT_COLUMNS = (("workclass", 9), ("education", 16), ("marital-status", 7), ("occupation", 15),
+                 ("relationship", 6), ("race", 5), ("sex", 2), ("native-country", 42), ("income", 2))
+ADULT_MISSING = ("workclass", "occupation", "native-country")
+ADULT_BATCH = 4096
+ADULT_PAIR = ("education", "occupation")  # the stateful classes' two series
+NOMINAL_MATRICES = {"cramers_v_matrix": True, "pearsons_contingency_coefficient_matrix": True,
+                    "tschuprows_t_matrix": True, "theils_u_matrix": False}
+NOMINAL_CLASSES = ("CramersV", "PearsonsContingencyCoefficient", "TschuprowsT", "TheilsU")
+FLEISS_ITEMS, FLEISS_CATEGORIES, FLEISS_RATERS, FLEISS_BATCH = 100_000, 5, 10, 10_000
+NOMINAL_ATOL = 1e-6
+
+
+def adult_matrix(rows: int = ADULT_ROWS, seed: int = 43, device: str = "cuda"):
+    """float32 [rows, 9]: each column half from a latent class of 8 and half from a
+    skewed (1 / (k + 1)) draw over its cardinality; NaN in about 7% of the rows of the
+    three columns Adult leaves unknown."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    latent = torch.randint(0, 8, (rows,), generator=g, device=device)
+    columns = []
+    for index, (name, k) in enumerate(ADULT_COLUMNS):
+        weights = 1.0 / torch.arange(1, k + 1, device=device, dtype=torch.float32)
+        skewed = torch.multinomial(weights, rows, replacement=True, generator=g)
+        column = torch.where(torch.rand(rows, generator=g, device=device) < 0.5, (latent * 7 + index) % k, skewed)
+        column = column.to(torch.float32)
+        if name in ADULT_MISSING:
+            column = torch.where(torch.rand(rows, generator=g, device=device) < 0.07, float("nan"), column)
+        columns.append(column)
+    return torch.stack(columns, dim=1)
+
+
+def fleiss_ratings(seed: int = 44, device: str = "cuda"):
+    """[items, categories] counts of 10 raters an item (70% pick the item's category) and
+    [items, categories, raters] float32 probabilities whose argmax is each rater's pick."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    truth = torch.randint(0, FLEISS_CATEGORIES, (FLEISS_ITEMS, 1), generator=g, device=device)
+    picks = torch.where(torch.rand(FLEISS_ITEMS, FLEISS_RATERS, generator=g, device=device) < 0.7, truth,
+                        torch.randint(0, FLEISS_CATEGORIES, (FLEISS_ITEMS, FLEISS_RATERS), generator=g, device=device))
+    counts = torch.zeros(FLEISS_ITEMS, FLEISS_CATEGORIES, dtype=torch.int64, device=device)
+    counts.scatter_add_(1, picks, torch.ones_like(picks))
+    probs = torch.rand(FLEISS_ITEMS, FLEISS_CATEGORIES, FLEISS_RATERS, generator=g, device=device)
+    probs.scatter_(1, picks[:, None, :], 2.0)
+    return counts, probs
+
+
+def nominal_run(device: str, matrix, counts, probs) -> dict:
+    """The four ``*_matrix`` functions under ``replace`` and ``drop``, the four stateful
+    classes over ADULT_PAIR in batches of ADULT_BATCH, and ``FleissKappa`` in both modes
+    in batches of FLEISS_BATCH, on ``device``: values, states and seconds."""
+    import warnings
+
+    import torch
+
+    from torchmetrics_tpu_torch import nominal as tnom
+    from torchmetrics_tpu_torch.functional import nominal as fnom
+
+    def timed(fn):
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    values, seconds = {}, {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a bias correction that cannot apply warns, as in JAX
+        for name in NOMINAL_MATRICES:
+            for strategy in ("replace", "drop"):
+                key = f"{name}.{strategy}"
+                values[key], seconds[key] = timed(lambda: getattr(fnom, name)(matrix, nan_strategy=strategy))
+    names = [name for name, _ in ADULT_COLUMNS]
+    p, t = matrix[:, names.index(ADULT_PAIR[0])], matrix[:, names.index(ADULT_PAIR[1])]
+    classes = {name: getattr(tnom, name)(num_classes=16, device=device) for name in NOMINAL_CLASSES}
+    classes["FleissKappa.counts"] = tnom.FleissKappa(mode="counts", device=device)
+    classes["FleissKappa.probs"] = tnom.FleissKappa(mode="probs", device=device)
+
+    def feed():
+        for start in range(0, p.shape[0], ADULT_BATCH):
+            for name in NOMINAL_CLASSES:
+                classes[name].update(p[start:start + ADULT_BATCH], t[start:start + ADULT_BATCH])
+        for start in range(0, counts.shape[0], FLEISS_BATCH):
+            classes["FleissKappa.counts"].update(counts[start:start + FLEISS_BATCH])
+            classes["FleissKappa.probs"].update(probs[start:start + FLEISS_BATCH])
+
+    _, seconds["feed"] = timed(feed)
+    for name, m in classes.items():
+        values[name], seconds[name] = timed(m.compute)
+    states = {name: classes[name].confmat for name in NOMINAL_CLASSES}
+    return {"values": values, "states": states, "seconds": seconds}
+
+
+def nominal_eval_phase() -> dict:
+    """Nominal association over a UCI Adult-shaped table on the card, against the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    matrix = adult_matrix()
+    counts, probs = fleiss_ratings()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = nominal_run("cuda", matrix, counts, probs)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    columns = len(ADULT_COLUMNS)
+    pairs = sum(2 * (columns * (columns - 1) // (2 if symmetric else 1)) for symmetric in NOMINAL_MATRICES.values())
+    updates = -(-matrix.shape[0] // ADULT_BATCH) * len(NOMINAL_CLASSES)
+    if launches["confusion_matrix"] != pairs + updates:
+        raise AssertionError(f"nominal_eval: expected {pairs} + {updates} confusion-matrix launches, got {launches}")
+    t0 = time.perf_counter()
+    cpu = nominal_run("cpu", matrix.cpu(), counts.cpu(), probs.cpu())
+    cpu_wall = time.perf_counter() - t0
+    compare(card["states"], cpu["states"], "state", lambda _: (0.0, 0.0))
+    gap = compare(card["values"], cpu["values"], "value", lambda _: (NOMINAL_ATOL, 0.0))
+    summary = {name: (float(v) if v.numel() == 1 else [round(float(x), 4) for x in v[0]])
+               for name, v in card["values"].items()}
+    return {
+        "phase": "nominal_eval", "rows": int(matrix.shape[0]), "columns": dict(ADULT_COLUMNS),
+        "nan_rows": {name: int(matrix[:, i].isnan().sum()) for i, (name, _) in enumerate(ADULT_COLUMNS)
+                     if name in ADULT_MISSING},
+        "launches": launches, "matrix_launches": pairs, "class_update_launches": updates,
+        "values": summary, "seconds": card["seconds"], "wall_s": wall, "peak_memory_bytes": peak,
+        "cpu_seconds": cpu["seconds"], "cpu_wall_s": cpu_wall, "max_float_gap": gap,
+        "fleiss": {"items": FLEISS_ITEMS, "categories": FLEISS_CATEGORIES, "raters": FLEISS_RATERS},
+    }
+
+
+# Cityscapes validation: 1024 x 2048, 19 classes, 255 void; 100 images (cut from 500) in
+# batches of 4, index input
+CITYSCAPES_IMAGES = 100
+CITYSCAPES_FULL_IMAGES = 500
+CITYSCAPES_BATCH = 4
+CITYSCAPES_CLASSES = 19
+CITYSCAPES_SHAPE = (1024, 2048)
+CITYSCAPES_CPU_IMAGES = 8
+SEGMENTATION_ATOL = 1e-6
+
+
+def cityscapes_batch(index: int, batch: int = CITYSCAPES_BATCH, device: str = "cuda"):
+    """Batch ``index``: int64 target maps of 32 x 32-pixel regions of one class each, 10%
+    of the regions void (255), and predictions that follow the target on 80% of the
+    pixels, a uniform class elsewhere and on void."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(1000 + index)
+    h, w = CITYSCAPES_SHAPE
+    regions = torch.randint(0, CITYSCAPES_CLASSES, (batch, h // 32, w // 32), generator=g, device=device)
+    regions = torch.where(torch.rand(regions.shape, generator=g, device=device) < 0.1, 255, regions)
+    target = regions.repeat_interleave(32, dim=1).repeat_interleave(32, dim=2)
+    noise = torch.randint(0, CITYSCAPES_CLASSES, (batch, h, w), generator=g, device=device)
+    follow = (torch.rand((batch, h, w), generator=g, device=device) < 0.8) & (target != 255)
+    return torch.where(follow, target, noise), target
+
+
+def segmentation_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import segmentation as tseg
+
+    kw = {"num_classes": CITYSCAPES_CLASSES, "input_format": "index", "device": device}
+    return {
+        "miou": tseg.MeanIoU(**kw), "miou_per_class": tseg.MeanIoU(per_class=True, **kw),
+        "miou_no_background": tseg.MeanIoU(include_background=False, **kw),
+        "miou_per_class_no_background": tseg.MeanIoU(per_class=True, include_background=False, **kw),
+        "gdice_square": tseg.GeneralizedDiceScore(weight_type="square", **kw),
+    }
+
+
+def segmentation_eval_phase() -> dict:
+    """MeanIoU and GeneralizedDiceScore over Cityscapes-shaped index maps on the card: one
+    bincount launch a metric an update; the CPU on the first images; one-hot input on the
+    first images against the index route."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional import segmentation as fseg
+    from torchmetrics_tpu_torch.ops import kernels
+
+    card = segmentation_metrics("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    updates, feed_s = 0, 0.0
+    t0 = time.perf_counter()
+    for index in range(CITYSCAPES_IMAGES // CITYSCAPES_BATCH):
+        preds, target = cityscapes_batch(index)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for m in card.values():
+            m.update(preds, target)
+        torch.cuda.synchronize()
+        feed_s += time.perf_counter() - t1
+        updates += 1
+    values = {name: m.compute() for name, m in card.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches["bincount"] != updates * len(card):
+        raise AssertionError(f"segmentation_eval: expected {updates * len(card)} bincount launches, got {launches}")
+
+    # the CPU twin on the first images, fresh metrics on both sides
+    first = [cityscapes_batch(i) for i in range(CITYSCAPES_CPU_IMAGES // CITYSCAPES_BATCH)]
+    prefix, cpu = segmentation_metrics("cuda"), segmentation_metrics("cpu")
+    t0 = time.perf_counter()
+    for preds, target in first:
+        p, t = preds.cpu(), target.cpu()
+        for name in cpu:
+            cpu[name].update(p, t)
+            prefix[name].update(preds, target)
+    cpu_s = time.perf_counter() - t0
+    states = {name: m.state_dict(persistent_only=False) for name, m in prefix.items()}
+    cpu_states = {name: m.state_dict(persistent_only=False) for name, m in cpu.items()}
+    gap = compare(states, cpu_states, "state", lambda _: (SEGMENTATION_ATOL, 0.0))
+    gap = max(gap, compare({k: m.compute() for k, m in prefix.items()}, {k: m.compute() for k, m in cpu.items()},
+                           "value", lambda _: (SEGMENTATION_ATOL, 0.0)))
+    counts = fseg.scores._index_class_sums(*first[0], CITYSCAPES_CLASSES)
+    cpu_counts = fseg.scores._index_class_sums(first[0][0].cpu(), first[0][1].cpu(), CITYSCAPES_CLASSES)
+    compare(counts, cpu_counts, "counts", lambda _: (0.0, 0.0))
+
+    # one-hot input ([4, 19, 1024, 2048] bool maps) against the index route, on the card
+    classes = torch.arange(CITYSCAPES_CLASSES, device=first[0][0].device)[None, :, None, None]
+    one_hot_gap = 0.0
+    for preds, target in first:
+        for fn in (fseg.mean_iou, fseg.generalized_dice_score):
+            for per_class in (False, True):
+                by_index = fn(preds, target, CITYSCAPES_CLASSES, per_class=per_class, input_format="index")
+                by_one_hot = fn(preds[:, None] == classes, target[:, None] == classes, CITYSCAPES_CLASSES,
+                                per_class=per_class)
+                one_hot_gap = max(one_hot_gap, compare(by_index, by_one_hot.cpu(), f"one_hot.{fn.__name__}",
+                                                       lambda _: (SEGMENTATION_ATOL, 0.0)))
+    summary = {name: (float(v) if v.numel() == 1 else [round(float(x), 5) for x in v]) for name, v in values.items()}
+    # last, after every timing: an update's device time by kernel, the bincount kernel
+    # against the id preparation around it
+    profile = profile_loop(segmentation_metrics("cuda"), torch.cat([p for p, _ in first]),
+                           torch.cat([t for _, t in first]), CITYSCAPES_BATCH, 2, track="bincount")
+    return {
+        "phase": "segmentation_eval", "images": CITYSCAPES_IMAGES,
+        "cut": f"{CITYSCAPES_IMAGES} of Cityscapes' {CITYSCAPES_FULL_IMAGES} validation images",
+        "shape": list(CITYSCAPES_SHAPE), "classes": CITYSCAPES_CLASSES, "batch": CITYSCAPES_BATCH,
+        "updates": updates, "metrics": len(card), "launches": launches,
+        "bincount_per_update": launches["bincount"] / updates, "values": summary,
+        "us_per_update": feed_s / updates * 1e6, "wall_s": wall, "peak_memory_bytes": peak,
+        "cpu_images": CITYSCAPES_CPU_IMAGES, "cpu_s": cpu_s, "max_float_gap": gap, "one_hot_gap": one_hot_gap,
+        "profile": profile,
+    }
+
+
+# MS MARCO dev-small's 6,980 queries against 65,536 passages, BERT-base width; Manhattan
+# and Minkowski (p = 3) of 4,096 embeddings with themselves
+PAIRWISE_QUERIES = 6980
+PAIRWISE_PASSAGES = 65_536
+PAIRWISE_WIDTH = 768
+PAIRWISE_SELF = 4096
+PAIRWISE_CPU_ROWS = 256
+PAIRWISE_COSINE_ATOL = 1e-5
+PAIRWISE_RTOL = 1e-5  # of the matrix's largest magnitude
+
+
+def msmarco_embeddings(seed: int = 45, device: str = "cuda"):
+    """float32 query and passage embeddings: unit-variance noise around a shared direction
+    (sentence embeddings are anisotropic)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    shared = torch.randn(PAIRWISE_WIDTH, generator=g, device=device) * 0.5
+    x = torch.randn(PAIRWISE_QUERIES, PAIRWISE_WIDTH, generator=g, device=device) + shared
+    y = torch.randn(PAIRWISE_PASSAGES, PAIRWISE_WIDTH, generator=g, device=device) + shared
+    return x, y
+
+
+def pairwise_eval_phase() -> dict:
+    """The five pairwise functions at MS MARCO scale on the card, against the CPU on the
+    first rows; Manhattan and Minkowski within three outputs' memory."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional import pairwise as fpw
+    from torchmetrics_tpu_torch.ops import kernels
+
+    x, y = msmarco_embeddings()
+    z = y[:PAIRWISE_SELF].contiguous()
+    # (function, kwargs, rows, columns): the card takes every row (the self sets with y
+    # omitted: zero diagonal), the CPU the first PAIRWISE_CPU_ROWS
+    cases = {
+        "cosine": (fpw.pairwise_cosine_similarity, {}, x, y),
+        "linear": (fpw.pairwise_linear_similarity, {}, x, y),
+        "euclidean": (fpw.pairwise_euclidean_distance, {}, x, y),
+        "manhattan": (fpw.pairwise_manhattan_distance, {}, z, None),
+        "minkowski_3": (fpw.pairwise_minkowski_distance, {"exponent": 3}, z, None),
+    }
+    kernels.reset_launch_counts()
+    seconds, peaks, gaps = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, (fn, kw, rows, columns) in cases.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = fn(rows, columns, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        if columns is None:
+            budget = 3 * out.numel() * out.element_size()
+            if peaks[name] > budget:
+                raise AssertionError(f"pairwise_eval: {name} took {peaks[name]} bytes, over its budget {budget}")
+            if bool(out.diagonal().any()):
+                raise AssertionError(f"pairwise_eval: {name}'s diagonal is not zero")
+        t1 = time.perf_counter()
+        want = fn(rows[:PAIRWISE_CPU_ROWS].cpu(), (rows if columns is None else columns).cpu(),
+                  zero_diagonal=columns is None, **kw)
+        seconds[f"{name}.cpu"] = time.perf_counter() - t1
+        atol = PAIRWISE_COSINE_ATOL if name == "cosine" else PAIRWISE_RTOL * float(want.abs().max())
+        gaps[name] = compare(out[:PAIRWISE_CPU_ROWS], want, f"pairwise.{name}", lambda _: (atol, 0.0))
+        del out, want
+    wall = time.perf_counter() - t0
+    return {
+        "phase": "pairwise_eval", "x": [PAIRWISE_QUERIES, PAIRWISE_WIDTH], "y": [PAIRWISE_PASSAGES, PAIRWISE_WIDTH],
+        "self": [PAIRWISE_SELF, PAIRWISE_WIDTH], "launches": dict(kernels.LAUNCHES), "seconds": seconds,
+        "peak_bytes_over_inputs": peaks, "max_float_gap": gaps, "cpu_rows": PAIRWISE_CPU_ROWS, "wall_s": wall,
+    }
+
+
 def profile_loop(metrics: dict, preds, target, batch: int, steps: int, track: str | None = None) -> dict:
     """Device time by kernel over ``steps`` warm steps of an eval loop, from torch.profiler.
     With ``track``, also the device ms per step and the traced calls of the kernels whose
@@ -3610,10 +4096,10 @@ SSIM_SHAPES = [(12, 1366, 2050, GAUSS11, GAUSS11), (12, 688, 1030, GAUSS11, GAUS
                (2, 90, 400, ("gauss", 5, 1.0), ("gauss", 151, 21.5))]
 
 
-# K1's shapes: the ImageNet step (int64 preds from argmax), the binary step, and three
-# stress shapes
+# K1's shapes: the ImageNet step (int64 preds from argmax), the binary step, three
+# stress shapes, and the nominal tables (an Adult column pair whole, a class's batch)
 CONFUSION_SHAPES = [(500, 1000, "int64"), (1 << 18, 2, "int32"), (1 << 20, 10, "int32"), (1 << 20, 100, "int32"),
-                    (1 << 20, 1000, "int32")]
+                    (1 << 20, 1000, "int32"), (ADULT_ROWS, 43, "int32"), (ADULT_BATCH, 16, "int32")]
 
 
 # K2's shapes (N, T, shuffled thresholds with ties, main path, seed): the ImageNet micro
@@ -3625,12 +4111,16 @@ CURVE_SHAPES = [(500 * 1000, 200, False, True, 4), (1 << 18, 1000, False, True, 
 # K4's shapes (N, C, ids, dtype, main path): the retrieval grouping's 6.98 M query ids
 # (shuffled as in its phase; as int64; grouped by query, as retrieval's compute counts
 # the documents of its sorted queries), the CTR step's fairness
-# update (8 segments: 33 bins), and four stress shapes from a per-lane copy (C = 100) to
-# an output beyond shared memory (C = 2^20)
+# update (8 segments: 33 bins), four stress shapes from a per-lane copy (C = 100) to
+# an output beyond shared memory (C = 2^20), the clustering contingency table (50,000
+# int64 ids into 1000 x 1000 bins, global atomics) and a Cityscapes update's tables
+# (4 images of 1024 x 2048 into 4 x 20^2 bins)
 BINCOUNT_SHAPES = [(6980 * 1000, 6980, "queries", "int32", True), (6980 * 1000, 6980, "queries", "int64", False),
                    (6980 * 1000, 6980, "grouped", "int32", True),
                    (1 << 18, 4 * FAMILY_SEGMENTS + 1, "segments", "int32", True)] + [
-    (1 << 20, c, "random", "int32", False) for c in (100, 8192, 1 << 16, 1 << 20)]
+    (1 << 20, c, "random", "int32", False) for c in (100, 8192, 1 << 16, 1 << 20)] + [
+    (CLUSTER_SAMPLES, CLUSTER_CLASSES ** 2, "random", "int64", True),
+    (CITYSCAPES_BATCH * 1024 * 2048, CITYSCAPES_BATCH * (CITYSCAPES_CLASSES + 1) ** 2, "cityscapes", "int32", True)]
 
 
 def kernel_times() -> dict:
@@ -5357,7 +5847,11 @@ def main() -> int:
               "phase_wall_s": time.perf_counter() - t0})
         return 0
     only = [phase for flag, phase in (("--retrieval-eval", retrieval_eval_phase),
-                                      ("--wrappers-eval", wrappers_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--wrappers-eval", wrappers_eval_phase),
+                                      ("--clustering-eval", clustering_eval_phase),
+                                      ("--nominal-eval", nominal_eval_phase),
+                                      ("--segmentation-eval", segmentation_eval_phase),
+                                      ("--pairwise-eval", pairwise_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -5371,6 +5865,9 @@ def main() -> int:
     records.append(kernel_record_confusion_matrix(1 << 18, 2, seed=8, main_path=True))
     records.append(kernel_record_confusion_matrix(1 << 16, 10, seed=9, main_path=False, preds_dtype=torch.int64,
                                                   target_dtype=torch.int64, high_bits=True))
+    # the nominal tables: a pair of Adult's columns (up to 42 categories and the NaN
+    # replacement), whole and in a stateful class's batch of 4,096
+    records += [kernel_record_confusion_matrix(n, c, seed=c, main_path=True) for n, c, _ in CONFUSION_SHAPES[5:]]
     records += [kernel_record_curve(n, t, seed=seed, main_path=main, unsorted_ties=unsorted)
                 for n, t, unsorted, main, seed in CURVE_SHAPES]
     # the micro curve's shape with int64 labels, read in place; past 4096 thresholds (the compare mode)
@@ -5450,7 +5947,8 @@ def main() -> int:
     retrieval = retrieval_phase()
     phases.append(retrieval)
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
-    for phase_fn in (retrieval_eval_phase, wrappers_eval_phase):
+    for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
+                     segmentation_eval_phase, pairwise_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

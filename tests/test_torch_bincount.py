@@ -20,9 +20,16 @@ import torch
 
 torch.set_num_threads(2)
 
+import jax.experimental.pallas  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from torchmetrics_tpu.ops.pallas_kernels import bincount_pallas, weighted_bincount_pallas  # noqa: E402
+
+# Pallas registers its TPU lowering rules when it is first imported, which fails once
+# the process has dropped JAX's TPU platform (``tests/test_doctests.py`` imports the JAX
+# package's ``convert/__main__.py``, which drops it). Importing it here, while every
+# test file is collected, keeps the interpret-mode references below working whichever
+# files a test worker ran before this one.
 from torchmetrics_tpu.utils.data import _bincount as jax_bincount  # noqa: E402
 from torchmetrics_tpu.utils.data import _flexible_bincount as jax_flexible_bincount  # noqa: E402
 from torchmetrics_tpu_torch.ops import kernels  # noqa: E402

@@ -2380,3 +2380,95 @@ def test_wrappers_of_a_macro_metric_launch_k1_and_equal_their_cpu_twins(card):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=where)
 
     close(card_values, cpu_values, "wrappers")
+
+
+# ------------------------------------------------------- clustering, nominal, segmentation, pairwise
+
+
+def test_segmentation_tables_on_the_bincount_kernel_equal_its_plain_version(card):
+    """Cityscapes-like index maps with 255 and negative labels on both sides: one K4
+    launch a batch, its (C+1)^2 tables equal to the CPU's plain version, and the
+    index-route scores equal to the CPU's."""
+    from torchmetrics_tpu_torch.functional import segmentation as fs
+    from torchmetrics_tpu_torch.functional.segmentation import scores
+
+    g = torch.Generator().manual_seed(31)
+    preds = torch.randint(-2, 21, (4, 256, 512), generator=g)
+    target = torch.where(torch.rand(4, 256, 512, generator=g) < 0.1, 255, torch.randint(0, 19, (4, 256, 512),
+                                                                                            generator=g))
+    kernels.reset_launch_counts()
+    on_card = scores._index_class_sums(preds.to(card), target.to(card), 19)
+    assert kernels.LAUNCHES["bincount"] == 1
+    for got, want in zip(on_card, scores._index_class_sums(preds, target, 19)):
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    for fn in (fs.mean_iou, fs.generalized_dice_score):
+        torch.testing.assert_close(fn(preds.to(card), target.to(card), 19, input_format="index").cpu(),
+                                   fn(preds, target, 19, input_format="index"), rtol=0, atol=1e-6)
+
+
+def test_a_1000_by_1000_contingency_table_on_the_bincount_kernel_equals_the_cpu(card):
+    from torchmetrics_tpu_torch.functional import clustering as fc
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+
+    g = torch.Generator().manual_seed(32)
+    target = torch.randint(0, 1000, (50_000,), generator=g)
+    preds = torch.where(torch.rand(50_000, generator=g) < 0.6, target, torch.randint(0, 1000, (50_000,), generator=g))
+    kernels.reset_launch_counts()
+    table = calculate_contingency_matrix(preds.to(card), target.to(card))
+    assert kernels.LAUNCHES["bincount"] == 1 and table.shape == (1000, 1000) and table.dtype == torch.float64
+    assert torch.equal(table.cpu(), calculate_contingency_matrix(preds, target))
+    for name in ("rand_score", "adjusted_rand_score", "fowlkes_mallows_index", "v_measure_score"):
+        torch.testing.assert_close(getattr(fc, name)(preds.to(card), target.to(card)).cpu(),
+                                   getattr(fc, name)(preds, target), rtol=0, atol=1e-6)
+
+
+def test_the_expected_mutual_information_on_the_card_equals_the_cpu(card):
+    from torchmetrics_tpu_torch.functional.clustering import extrinsic
+    from torchmetrics_tpu_torch.functional.clustering.utils import calculate_contingency_matrix
+
+    g = torch.Generator().manual_seed(33)
+    preds, target = torch.randint(0, 300, (20_000,), generator=g), torch.randint(0, 250, (20_000,), generator=g)
+    table = calculate_contingency_matrix(preds, target)
+    on_cpu = extrinsic.expected_mutual_info_score(table, 20_000)
+    on_card = extrinsic.expected_mutual_info_score(table.to(card), 20_000)
+    assert on_card.device.type == "cuda"
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=1e-5)
+    torch.testing.assert_close(extrinsic.adjusted_mutual_info_score(preds.to(card), target.to(card)).cpu(),
+                               extrinsic.adjusted_mutual_info_score(preds, target), rtol=0, atol=1e-5)
+
+
+def test_a_nominal_matrix_launches_k1_once_a_pair_and_equals_the_cpu(card):
+    from torchmetrics_tpu_torch.functional import nominal as fn
+
+    g = torch.Generator().manual_seed(34)
+    columns = [torch.randint(0, c, (4096,), generator=g).to(torch.float32) for c in (9, 16, 7, 2)]
+    columns[0] = torch.where(torch.rand(4096, generator=g) < 0.07, float("nan"), columns[0])
+    matrix = torch.stack(columns, dim=1)
+    for name, pairs in (("cramers_v_matrix", 6), ("theils_u_matrix", 12)):
+        for strategy in ("replace", "drop"):
+            kernels.reset_launch_counts()
+            got = getattr(fn, name)(matrix.to(card), nan_strategy=strategy)
+            assert kernels.LAUNCHES["confusion_matrix"] == pairs, (name, strategy, kernels.LAUNCHES)
+            torch.testing.assert_close(got.cpu(), getattr(fn, name)(matrix, nan_strategy=strategy), rtol=0, atol=1e-6)
+
+
+def test_pairwise_products_on_the_card_run_in_full_float32(card):
+    """The linear similarity on the card within float32 rounding of a float64 product,
+    which TF32 (10-bit mantissas) would miss by ~1e-3 relative, even with TF32 on
+    process-wide; the flag is restored after the call."""
+    from torchmetrics_tpu_torch.functional import pairwise as fp
+
+    g = torch.Generator().manual_seed(35)
+    x, y = torch.randn(512, 768, generator=g) + 1.0, torch.randn(1024, 768, generator=g) + 1.0
+    want = (x.double() @ y.double().T)
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    try:
+        matmul.fp32_precision = "tf32"
+        got = fp.pairwise_linear_similarity(x.to(card), y.to(card)).cpu().double()
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = before
+    assert float(((got - want).abs() / want.abs().max()).max()) < 1e-6
+    torch.testing.assert_close(fp.pairwise_minkowski_distance(x.to(card), y.to(card), exponent=3).cpu(),
+                               fp.pairwise_minkowski_distance(x, y, exponent=3), rtol=1e-5, atol=0)

@@ -22,7 +22,9 @@ family (MSE, MAE, MAPE, SMAPE, WMAPE, MSLE, Minkowski, LogCosh, Tweedie, CSI, KL
 divergence, cosine similarity, Pearson, Concordance, Spearman, Kendall, R², explained
 variance, RSE); the eleven retrieval metrics, which score every query in one batched
 pass; the wrappers (bootstrap, classwise, min/max, multioutput, multitask, running,
-input transformers, the tracker and feature sharing); and the fleet plane (``fleet``, ``obs.fleet``) with the live
+input transformers, the tracker and feature sharing); the clustering scores (extrinsic
+and intrinsic), the nominal association statistics, the segmentation scores and the
+pairwise distances (``functional.pairwise``); and the fleet plane (``fleet``, ``obs.fleet``) with the live
 introspection server (``obs.server``, ``python -m torchmetrics_tpu_torch.obs.serve``).
 """
 
@@ -31,15 +33,21 @@ from torchmetrics_tpu_torch.aggregation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.aggregation import __all__ as _aggregation_all
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.core.metric import CompositionalMetric, Metric
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
+from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.segmentation import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.segmentation import __all__ as _segmentation_all
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -54,6 +62,7 @@ __version__ = "0.1.0.dev0"
 
 __all__ = [
     "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
-    *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, "BootStrapper", "ClasswiseWrapper",
+    *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, *_clustering_all, *_nominal_all,
+    *_segmentation_all, "BootStrapper", "ClasswiseWrapper",
     "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 ]

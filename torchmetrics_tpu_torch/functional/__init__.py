@@ -1,16 +1,34 @@
 """Functional metrics of the port."""
 
-from torchmetrics_tpu_torch.functional import classification, image, regression, retrieval
+from torchmetrics_tpu_torch.functional import (
+    classification,
+    clustering,
+    image,
+    nominal,
+    pairwise,
+    regression,
+    retrieval,
+    segmentation,
+)
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
+from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
+from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.pairwise import __all__ as _pairwise_all
 from torchmetrics_tpu_torch.functional.regression import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.regression import __all__ as _regression_all
 from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
+from torchmetrics_tpu_torch.functional.segmentation import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.segmentation import __all__ as _segmentation_all
 
 __all__ = [
-    "classification", "image", "regression", "retrieval",
-    *_classification_all, *_image_all, *_regression_all, *_retrieval_all,
+    "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation",
+    *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all,
+    *_retrieval_all, *_segmentation_all,
 ]
