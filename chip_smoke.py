@@ -200,16 +200,40 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    whose peak memory must stay within three outputs (no ``[N, M, d]`` temporary).
    The CPU computes the first 256 rows (cosine within 1e-5, the others within 1e-5 of
    the matrix's largest magnitude).
-20. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+20. ``text_eval``: the text domain's string and token metrics on five published
+   workloads, each corpus synthesized from a seed at its published counts and lengths
+   (words from a seeded Zipf vocabulary, hypotheses made from the references by seeded
+   substitutions, deletions and insertions; no dataset is in the repo). ASR:
+   LibriSpeech test-clean's 2,620 utterances and 52,576 words at ~5% word errors,
+   batches of 64: WER, CER, MER, WIL, WIP and ``EditDistance`` (``mean`` and ``none``).
+   MT: WMT14 newstest2014 en-de's 3,003 segments of ~21 words, one reference each, ~40%
+   edits, batches of 128: BLEU, SacreBLEU (13a), chrF, chrF++, TER and EED.
+   Summarization: CNN/DailyMail 3.0.0 test's 11,490 pairs, references of ~55 words in 3-4
+   sentences, batches of 256: ROUGE-1/2/L/Lsum with the regex sentence splitter
+   installed (punkt is never downloaded). QA: SQuAD v1.1 dev's 10,570 questions with 1-3
+   gold answers of 1-10 words, ~80% exact, batches of 512. LM: ``Perplexity`` at
+   Llama-2's vocabulary of 32,000 over 40 windows of 4 x 2,048 float32 logits drawn on the
+   card (327,680 tokens, the last window's last 1,024 ignored), eager and with
+   ``jit_update=True``. It prints per loop the host seconds, items per second and µs per
+   update (the final compute included), the values, for the ASR corpus the host seconds
+   of its unit-cost edit distances by bit vectors and by the numpy DP, and for
+   perplexity the device ms per update from a profile, the logits' read rate and their
+   bound at the memory rate. It fails unless the two edit-distance totals agree, every
+   string loop's states live on the card and its states and values after its first 2
+   batches equal the same batches with ``device="cpu"`` (counters exactly, scores and
+   per-sentence lists within 1e-6), perplexity on the first window equals the CPU within
+   1e-5 relative, the captured perplexity is bitwise the eager one, and no K1-K5 kernel
+   was launched.
+21. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
-   8 images with fresh metrics on both sides. It reports the kernel's device ms per
+   4 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-21. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+22. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-22. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+23. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -230,7 +254,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-23. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+24. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -256,7 +280,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-24. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+25. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -274,8 +298,9 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    counters, with every tenant's final states and value equal (the victim's MSE sums
    within 1e-6 relative, all else bitwise).
 
-Both eval phases run the same loop again with ``device="cpu"`` and require equal
-integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
+Both eval phases run their first steps again with ``device="cpu"`` (ImageNet 20 of its
+100 steps, CTR 4 of 16), against the card's states and values snapshotted after the
+same step, and require equal integer states and floats within 1e-5; the calibration ``bins`` state, whose sums
 reach 10^3 where a float32 ulp is 10^-4, within 1e-5 plus a relative 1e-6. Each
 phase requires its kernels to have launched. Each eval phase then profiles a few
 warm steps on fresh metrics (``torch.profiler``): the device time per step, the
@@ -345,7 +370,7 @@ builds the kernels and prints only the ``chaos_eval`` phase's lines (its checks
 included).
 
     python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
-        --segmentation-eval --pairwise-eval
+        --segmentation-eval --pairwise-eval --text-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -359,6 +384,7 @@ ledger adds too.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -917,7 +943,6 @@ def kernel_record_ssim_moments(planes: int, hp: int, wp: int, window_h: tuple, w
     import torch
     import torch.nn.functional as F
 
-    from torchmetrics_tpu_torch.functional.image.utils import _full_float32
     from torchmetrics_tpu_torch.ops import kernels
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -948,8 +973,12 @@ def kernel_record_ssim_moments(planes: int, hp: int, wp: int, window_h: tuple, w
     stacked = torch.stack((p, t, p * p, t * t, p * t)).reshape(5 * planes // channels, channels, hp, wp)
     kernel2d = (wh[:, None] * ww[None, :]).expand(channels, 1, kh, kw).contiguous()
 
+    cudnn = torch.backends.cudnn
+
     def library():
-        with _full_float32():
+        # a single-channel stack is a cuDNN convolution: TF32 off for the yardstick's call
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic,
+                         allow_tf32=False):
             return F.conv2d(stacked, kernel2d, groups=channels)
 
     lib = library().reshape(5, planes, ho, wo).transpose(0, 1).cpu()
@@ -1043,24 +1072,35 @@ def binary_data(n: int = 1 << 22, seed: int = 1, device: str = "cuda"):
     return torch.sigmoid(logits), target
 
 
-def run_loop(metrics: dict, preds, target, batch: int):
-    """Update every metric batch by batch, then compute; returns (values, states, seconds)."""
+def run_loop(metrics: dict, preds, target, batch: int, snapshot_after: int | None = None):
+    """Update every metric batch by batch (``preds`` and ``target`` are tensors or lists,
+    sliced alike), then compute; returns (values, states, seconds, snapshot), where
+    ``snapshot`` is the (values, states) after ``snapshot_after`` steps, taken with the
+    clock stopped, or the final ones where that is None."""
     import torch
 
-    cuda = preds.is_cuda
-    if cuda:
-        torch.cuda.synchronize()
+    def taken() -> tuple:
+        return ({name: m.compute() for name, m in metrics.items()},
+                {name: m.state_dict(persistent_only=False) for name, m in metrics.items()})
+
+    snapshot = None
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for start in range(0, preds.shape[0], batch):
+    for step, start in enumerate(range(0, len(preds), batch), 1):
         p, t = preds[start:start + batch], target[start:start + batch]
         for m in metrics.values():
             m.update(p, t)
+        if step == snapshot_after:
+            torch.cuda.synchronize()
+            paused = time.perf_counter()
+            snapshot = taken()
+            torch.cuda.synchronize()
+            t0 += time.perf_counter() - paused
     values = {name: m.compute() for name, m in metrics.items()}
-    if cuda:
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     states = {name: m.state_dict(persistent_only=False) for name, m in metrics.items()}
-    return values, states, seconds
+    return values, states, seconds, snapshot or (values, states)
 
 
 def _classification_tolerance(where: str):
@@ -1096,25 +1136,31 @@ def compare(card, cpu, where: str, tolerance=_classification_tolerance) -> float
     return float(diff.max())
 
 
-def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile_steps: int) -> dict:
-    """Drive the main path on the card with fresh launch counts, then the same loop on the CPU."""
+def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile_steps: int,
+               cpu_steps: int) -> dict:
+    """Drive the main path on the card with fresh launch counts, then the same loop on the
+    CPU over the first ``cpu_steps`` steps, against the card's states and values
+    snapshotted after the same step."""
     from torchmetrics_tpu_torch.ops import kernels
 
     preds, target = data
     steps = -(-preds.shape[0] // batch)
     card_metrics = metrics_fn("cuda")
     kernels.reset_launch_counts()
-    card_values, card_states, seconds = run_loop(card_metrics, preds, target, batch)
+    card_values, _, seconds, (prefix_values, prefix_states) = run_loop(card_metrics, preds, target, batch,
+                                                                         snapshot_after=cpu_steps)
     launches = dict(kernels.LAUNCHES)
     for kernel in required:
         if launches[kernel] <= 0:
             raise AssertionError(f"{name}: kernel {kernel} was never launched on the main path")
 
-    cpu_values, cpu_states, cpu_seconds = run_loop(metrics_fn("cpu"), preds.cpu(), target.cpu(), batch)
+    rows = cpu_steps * batch
+    cpu_values, cpu_states, cpu_seconds, _ = run_loop(metrics_fn("cpu"), preds[:rows].cpu(), target[:rows].cpu(),
+                                                      batch)
     gaps = {
-        metric: {"state": compare(card_states[metric], cpu_states[metric], f"state.{metric}"),
-                 "value": compare(card_values[metric], cpu_values[metric], f"value.{metric}")}
-        for metric in card_states
+        metric: {"state": compare(prefix_states[metric], cpu_states[metric], f"state.{metric}"),
+                 "value": compare(prefix_values[metric], cpu_values[metric], f"value.{metric}")}
+        for metric in prefix_states
     }
     summary = {}
     for metric, value in card_values.items():
@@ -1127,7 +1173,7 @@ def eval_phase(name: str, metrics_fn, data, batch: int, required: tuple, profile
     return {
         "phase": name, "samples": int(preds.shape[0]), "batch": batch, "steps": steps,
         "wall_s": seconds, "us_per_step": seconds / steps * 1e6, "launches": launches,
-        "cpu_compared_steps": steps, "cpu_wall_s": cpu_seconds, "max_float_gap": max(max(g.values()) for g in gaps.values()),
+        "cpu_compared_steps": cpu_steps, "cpu_wall_s": cpu_seconds, "max_float_gap": max(max(g.values()) for g in gaps.values()),
         "float_gaps": {metric: g for metric, g in gaps.items() if any(g.values())}, "values": summary,
         "profile": profile_loop(metrics_fn("cuda"), preds, target, batch, profile_steps),
     }
@@ -1196,9 +1242,9 @@ def collection_eval_phase() -> tuple:
                 col = MetricCollection(metrics) if side == "grouped" else None
                 kernels.reset_launch_counts()
                 if col is None:
-                    values, states, seconds = run_loop(metrics, preds, target, batch)
+                    values, states, seconds, _ = run_loop(metrics, preds, target, batch)
                 else:
-                    values, _, seconds = run_loop({"all": col}, preds, target, batch)
+                    values, _, seconds, _ = run_loop({"all": col}, preds, target, batch)
                     values, states = values["all"], collection_states(col)
                 us[side].append(seconds / steps * 1e6)
                 if side not in runs:
@@ -2508,9 +2554,9 @@ def multilabel_eval_phase() -> dict:
 
     # (1) eager, metric by metric, all the data; the CPU runs the same loop
     kernels.reset_launch_counts()
-    card_values, card_states, seconds = run_loop(multilabel_metrics("cuda"), preds, target, batch)
+    card_values, card_states, seconds, _ = run_loop(multilabel_metrics("cuda"), preds, target, batch)
     count(dict(kernels.LAUNCHES), "eager")
-    cpu_values, cpu_states, cpu_seconds = run_loop(multilabel_metrics("cpu"), preds.cpu(), target.cpu(), batch)
+    cpu_values, cpu_states, cpu_seconds, _ = run_loop(multilabel_metrics("cpu"), preds.cpu(), target.cpu(), batch)
     state_gap = max(compare(card_states[m], cpu_states[m], f"state.{m}") for m in card_states)
     value_gap = compare(card_values, cpu_values, "value")
     for name, value in card_values.items():
@@ -3097,7 +3143,7 @@ def k5_ms_per_step_alone(records: list) -> float:
     return 2 * full[0]["kernel_ms"] + sum(r["kernel_ms"] for r in full[1:])
 
 
-def image_phase(batch: int = 4, cpu_images: int = 8, profile_steps: int = 3,
+def image_phase(batch: int = 4, cpu_images: int = 4, profile_steps: int = 3,
                 ssim_alone_ms: float | None = None) -> dict:
     """The restoration eval loop on the card, then the card against the CPU on the first images.
     Reports K5's device ms per warm step in the loop (profile) beside ``ssim_alone_ms``."""
@@ -3109,7 +3155,7 @@ def image_phase(batch: int = 4, cpu_images: int = 8, profile_steps: int = 3,
     steps = -(-preds.shape[0] // batch)
     card_metrics = image_metrics("cuda")
     kernels.reset_launch_counts()
-    card_values, _, seconds = run_loop(card_metrics, preds, target, batch)
+    card_values, _, seconds, _ = run_loop(card_metrics, preds, target, batch)
     launches = dict(kernels.LAUNCHES)
     if launches["ssim_moments"] != 6 * steps:
         raise AssertionError(f"image_restoration_eval: {launches['ssim_moments']} ssim_moments launches, "
@@ -3128,8 +3174,8 @@ def image_phase(batch: int = 4, cpu_images: int = 8, profile_steps: int = 3,
         if profile["tracked"]["calls"] == 6 * profile_steps:
             break
     p8, t8 = preds[:cpu_images], target[:cpu_images]
-    card8_values, card8_states, _ = run_loop(image_metrics("cuda"), p8, t8, batch)
-    cpu_values, cpu_states, cpu_seconds = run_loop(image_metrics("cpu"), p8.cpu(), t8.cpu(), batch)
+    card8_values, card8_states, _, _ = run_loop(image_metrics("cuda"), p8, t8, batch)
+    cpu_values, cpu_states, cpu_seconds, _ = run_loop(image_metrics("cpu"), p8.cpu(), t8.cpu(), batch)
     gaps = {}
     for metric in card8_states:
         for key, value in card8_states[metric].items():
@@ -4045,6 +4091,418 @@ def pairwise_eval_phase() -> dict:
         "self": [PAIRWISE_SELF, PAIRWISE_WIDTH], "launches": dict(kernels.LAUNCHES), "seconds": seconds,
         "peak_bytes_over_inputs": peaks, "max_float_gap": gaps, "cpu_rows": PAIRWISE_CPU_ROWS, "wall_s": wall,
     }
+
+
+# ------------------------------------------------------------------------- text
+
+# The five text workloads at their published sizes. No corpus is in the repo or
+# downloaded: each is synthesized from a seed at the published counts and lengths, its
+# words drawn from a seeded Zipf vocabulary and its hypotheses made from the references
+# by seeded substitutions, deletions and insertions. LibriSpeech test-clean: 2,620
+# utterances, 52,576 words. WMT14 newstest2014 en-de: 3,003 segments, one reference of
+# ~21 words each. CNN/DailyMail 3.0.0 test: 11,490 pairs, references of ~55 words in 3-4
+# sentences. SQuAD v1.1 dev: 10,570 questions, 1-3 gold answers of 1-10 words each.
+# Perplexity at Llama-2's vocabulary, 40 windows of 4 x 2,048 tokens (327,680 tokens,
+# about WikiText-2 test's length), the last window's last tokens set to ignore_index.
+TEXT_VOCAB = 30_000
+TEXT_ZIPF = 1.1
+LIBRISPEECH_UTTERANCES = 2620
+LIBRISPEECH_WORDS = 52_576
+ASR_EDITS = 0.05
+ASR_BATCH = 64
+WMT_SEGMENTS = 3003
+WMT_MEAN_WORDS = 21
+MT_EDITS = 0.40
+MT_BATCH = 128
+CNNDM_PAIRS = 11_490
+CNNDM_MEAN_WORDS = 55
+SUMMARY_EDITS = 0.40
+SUMMARY_BATCH = 256
+SQUAD_QUESTIONS = 10_570
+SQUAD_EXACT = 0.80
+QA_BATCH = 512
+LM_VOCAB = 32_000
+LM_WINDOW = (4, 2048)
+LM_UPDATES = 40
+LM_PADDED = 1024
+LM_IGNORE = -100
+LM_PROFILED = 3
+# the CPU twin of each string loop takes its first batches (the string work is the same
+# host code on both sides), perplexity's its first window
+TEXT_CPU_BATCHES = 2
+TEXT_ATOL = 1e-6
+PERPLEXITY_RTOL = 1e-5
+# list states of per-sentence scores, held within TEXT_ATOL; every other state exactly
+TEXT_SCORE_STATES = ("sentence_", "rouge")
+
+
+@functools.lru_cache(maxsize=1)
+def text_vocabulary(seed: int = 70):
+    """``TEXT_VOCAB`` distinct lowercase words (a few with German letters), most frequent
+    first, and the cumulative Zipf distribution over them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("etaoinshrdlucmfwypvbgkjqxz"))
+    weights = 1.0 / np.arange(1, len(letters) + 1) ** 0.8
+    words, seen = [], set()
+    while len(words) < TEXT_VOCAB:
+        n = min(1 + rng.poisson(5.0), 14)
+        word = "".join(rng.choice(letters, n, p=weights / weights.sum()))
+        if rng.rand() < 0.02:
+            word += rng.choice(["ä", "ö", "ü", "ß"])
+        if word not in seen:
+            seen.add(word)
+            words.append(word)
+    probs = 1.0 / np.arange(1, TEXT_VOCAB + 1) ** TEXT_ZIPF
+    return np.array(words, dtype=object), np.cumsum(probs / probs.sum())
+
+
+def text_draw(rng, n: int) -> list:
+    """``n`` words drawn from the Zipf vocabulary."""
+    import numpy as np
+
+    vocab, cdf = text_vocabulary()
+    return vocab[np.minimum(np.searchsorted(cdf, rng.random_sample(n), side="right"), len(vocab) - 1)].tolist()
+
+
+def text_lengths(rng, count: int, total: int, low: int, high: int) -> list:
+    """``count`` lengths in [low, high] from a gamma of mean total / count, summing to ``total``."""
+    import numpy as np
+
+    lengths = np.clip(np.rint(rng.gamma(4.0, total / count / 4.0, count)), low, high).astype(int)
+    while lengths.sum() != total:
+        i = rng.randint(count)
+        step = 1 if lengths.sum() < total else -1
+        if low <= lengths[i] + step <= high:
+            lengths[i] += step
+    return lengths.tolist()
+
+
+def text_edit(rng, words: list, rate: float) -> list:
+    """``words`` with each word substituted, deleted or followed by an inserted word at
+    ``rate`` (the three alike)."""
+    out = []
+    draws = rng.rand(len(words))
+    ops = rng.randint(0, 3, len(words))
+    fresh = text_draw(rng, len(words))
+    for word, u, op, new in zip(words, draws, ops, fresh):
+        if u >= rate:
+            out.append(word)
+        elif op == 0:
+            out.append(new)
+        elif op == 2:
+            out += [word, new]
+    return out
+
+
+def text_sentence(rng, words: list) -> str:
+    """Capitalised, a comma after one word in ten, a full stop at the end."""
+    words = [w + "," if rng.rand() < 0.1 else w for w in words[:-1]] + words[-1:]
+    return (" ".join(words)[:1].upper() + " ".join(words)[1:] + ".") if words else ""
+
+
+def librispeech_batches(seed: int = 71) -> list:
+    """(hypotheses, references) batches of ``ASR_BATCH`` utterances: lowercase words, no
+    punctuation, as LibriSpeech's normalised transcripts; ~5% word errors."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = text_lengths(rng, LIBRISPEECH_UTTERANCES, LIBRISPEECH_WORDS, 1, 120)
+    words = text_draw(rng, LIBRISPEECH_WORDS)
+    refs, hyps, start = [], [], 0
+    for n in lengths:
+        ref = words[start:start + n]
+        start += n
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(text_edit(rng, ref, ASR_EDITS)))
+    return [(hyps[i:i + ASR_BATCH], refs[i:i + ASR_BATCH]) for i in range(0, len(refs), ASR_BATCH)]
+
+
+def wmt14_batches(seed: int = 72) -> list:
+    """(hypotheses, [[reference]]) batches of ``MT_BATCH`` segments, ~40% edits."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = text_lengths(rng, WMT_SEGMENTS, WMT_SEGMENTS * WMT_MEAN_WORDS, 1, 100)
+    hyps, refs = [], []
+    for n in lengths:
+        ref = text_draw(rng, n)
+        refs.append([text_sentence(rng, ref)])
+        hyps.append(text_sentence(rng, text_edit(rng, ref, MT_EDITS)))
+    return [(hyps[i:i + MT_BATCH], refs[i:i + MT_BATCH]) for i in range(0, len(refs), MT_BATCH)]
+
+
+def cnndm_batches(seed: int = 73) -> list:
+    """(summaries, references) batches of ``SUMMARY_BATCH`` pairs: references of 3-4
+    sentences, ~55 words; summaries sentence by sentence with ~40% edits."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lengths = text_lengths(rng, CNNDM_PAIRS, CNNDM_PAIRS * CNNDM_MEAN_WORDS, 12, 160)
+    hyps, refs = [], []
+    for n in lengths:
+        cuts = np.sort(rng.choice(np.arange(3, n - 2), rng.randint(2, 4), replace=False)) if n > 8 else [n // 2]
+        words = text_draw(rng, n)
+        sentences = np.split(np.array(words, dtype=object), cuts)
+        refs.append(" ".join(text_sentence(rng, s.tolist()) for s in sentences))
+        hyps.append(" ".join(text_sentence(rng, text_edit(rng, s.tolist(), SUMMARY_EDITS))
+                             for s in sentences))
+    return [(hyps[i:i + SUMMARY_BATCH], refs[i:i + SUMMARY_BATCH]) for i in range(0, len(refs), SUMMARY_BATCH)]
+
+
+def squad_batches(seed: int = 74) -> list:
+    """(predictions, targets) batches of ``QA_BATCH`` questions in SQuAD's format: 1-3
+    gold answers of 1-10 words (the others a word shorter or longer than the first, as
+    annotators' spans of one passage are); ~80% of predictions exact up to case,
+    articles and punctuation, the rest overlapping."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    preds, targets = [], []
+    for i in range(SQUAD_QUESTIONS):
+        qid = f"{seed:02x}{i:022x}"
+        first = text_draw(rng, rng.randint(1, 11))
+        golds = [" ".join(first)]
+        for _ in range(rng.randint(0, 3)):
+            extra = text_draw(rng, 1)[0]
+            golds.append(" ".join(first[1:] if len(first) > 1 and rng.rand() < 0.5 else first + [extra]))
+        if rng.rand() < SQUAD_EXACT:
+            answer = golds[rng.randint(len(golds))]
+            answer = rng.choice([answer, answer.capitalize(), "the " + answer, answer + "."])
+        else:
+            answer = " ".join(text_edit(rng, first, 0.5) or first[:1])
+        preds.append({"prediction_text": answer, "id": qid})
+        targets.append({"answers": {"answer_start": [0] * len(golds), "text": golds}, "id": qid})
+    return [(preds[i:i + QA_BATCH], targets[i:i + QA_BATCH]) for i in range(0, len(preds), QA_BATCH)]
+
+
+def text_metrics(loop: str, device: str) -> dict:
+    from torchmetrics_tpu_torch import text as tt
+
+    kw = {"device": device}
+    if loop == "asr":
+        return {"wer": tt.WordErrorRate(**kw), "cer": tt.CharErrorRate(**kw), "mer": tt.MatchErrorRate(**kw),
+                "wil": tt.WordInfoLost(**kw), "wip": tt.WordInfoPreserved(**kw),
+                "edit_mean": tt.EditDistance(**kw), "edit_none": tt.EditDistance(reduction="none", **kw)}
+    if loop == "mt":
+        return {"bleu": tt.BLEUScore(**kw), "sacrebleu_13a": tt.SacreBLEUScore(tokenize="13a", **kw),
+                "chrf": tt.CHRFScore(n_word_order=0, **kw), "chrf_pp": tt.CHRFScore(n_word_order=2, **kw),
+                "ter": tt.TranslationEditRate(**kw), "eed": tt.ExtendedEditDistance(**kw)}
+    if loop == "summarization":
+        return {"rouge": tt.ROUGEScore(rouge_keys=("rouge1", "rouge2", "rougeL", "rougeLsum"), **kw)}
+    return {"squad": tt.SQuAD(**kw)}
+
+
+TEXT_LOOPS = (("asr", librispeech_batches, "LibriSpeech test-clean", LIBRISPEECH_UTTERANCES),
+              ("mt", wmt14_batches, "WMT14 newstest2014 en-de", WMT_SEGMENTS),
+              ("summarization", cnndm_batches, "CNN/DailyMail 3.0.0 test", CNNDM_PAIRS),
+              ("qa", squad_batches, "SQuAD v1.1 dev", SQUAD_QUESTIONS))
+
+
+def _text_tolerance(where: str):
+    """Scores and per-sentence lists within TEXT_ATOL; every other state exactly."""
+    state = where.split(".")[2] if where.startswith("state.") else None
+    if state is None or state.startswith(TEXT_SCORE_STATES):
+        return TEXT_ATOL, 0.0
+    return 0.0, 0.0
+
+
+def text_values(values) -> object:
+    """A JSON summary of a text metric's value: a float, or a vector's length and mean."""
+    if isinstance(values, dict):
+        return {k: text_values(v) for k, v in values.items()}
+    if isinstance(values, tuple):
+        return [text_values(v) for v in values]
+    if values.numel() == 1:
+        return float(values)
+    return {"n": int(values.numel()), "mean": float(values.float().mean())}
+
+
+def text_string_loop(loop: str, batches: list) -> dict:
+    """One string loop on the card (states and values snapshotted after the CPU twin's
+    prefix), then the twin on that prefix; fails unless they agree."""
+    batch = len(batches[0][0])
+    preds = [p for ps, _ in batches for p in ps]
+    target = [t for _, ts in batches for t in ts]
+    card = text_metrics(loop, "cuda")
+    values, states, wall, (prefix_values, prefix_states) = run_loop(card, preds, target, batch,
+                                                                    snapshot_after=TEXT_CPU_BATCHES)
+    for name, metric_states in states.items():
+        for key, state in metric_states.items():
+            for t in (state if isinstance(state, list) else [state]):
+                if not t.is_cuda:
+                    raise AssertionError(f"text_eval: {loop}.{name}.{key} is not on the card")
+
+    rows = TEXT_CPU_BATCHES * batch
+    cpu_values, cpu_states, cpu_s, _ = run_loop(text_metrics(loop, "cpu"), preds[:rows], target[:rows], batch)
+    gap = max(compare(prefix_states, cpu_states, "state", _text_tolerance),
+              compare(prefix_values, cpu_values, "value", _text_tolerance))
+    return {"batches": len(batches), "batch": batch, "items": len(preds), "wall_s": wall,
+            "items_per_s": len(preds) / wall, "us_per_update": wall / len(batches) * 1e6,
+            "values": text_values(values), "cpu_batches": TEXT_CPU_BATCHES, "cpu_s": cpu_s, "max_float_gap": gap}
+
+
+def levenshtein_times(batches: list) -> dict:
+    """The unit-cost edit distances of the ASR loop (each utterance by words and by
+    characters) through ``helper``'s bit vectors and through the JAX package's numpy DP,
+    in host seconds; fails unless the totals agree."""
+    from torchmetrics_tpu_torch.functional.text import helper
+
+    pairs = [(p.split(), t.split()) for ps, ts in batches for p, t in zip(ps, ts)]
+    pairs += [(list(p), list(t)) for ps, ts in batches for p, t in zip(ps, ts)]
+    pairs = [(p, t) for p, t in pairs if p and t]  # as ``_edit_distance_cost`` routes them
+    seconds, totals = {}, {}
+    for name, fn in (("bit_vector", helper._levenshtein_bit_vector),
+                     ("numpy_dp", lambda p, t: helper._edit_distance_dp(p, t, 1))):
+        t0 = time.perf_counter()
+        totals[name] = sum(fn(p, t) for p, t in pairs)
+        seconds[name] = time.perf_counter() - t0
+    if totals["bit_vector"] != totals["numpy_dp"]:
+        raise AssertionError(f"text_eval: the edit distances disagree: {totals}")
+    return {"pairs": len(pairs), "total": totals["bit_vector"], "host_s": seconds}
+
+
+def lm_window(g, index: int):
+    """One window of float32 logits over Llama-2's vocabulary and its targets, on the
+    card (a signal of +8 on the target logit); the last window ends in ignored tokens."""
+    import torch
+
+    target = torch.randint(0, LM_VOCAB, LM_WINDOW, generator=g, device="cuda")
+    logits = torch.randn(*LM_WINDOW, LM_VOCAB, generator=g, device="cuda")
+    logits.scatter_add_(-1, target[..., None], torch.full((*LM_WINDOW, 1), 8.0, device="cuda"))
+    if index == LM_UPDATES - 1:
+        target[-1, -LM_PADDED:] = LM_IGNORE
+    return logits, target
+
+
+def perplexity_loop() -> dict:
+    """Perplexity eager and captured (``jit_update=True``) over the same windows, the
+    captured states bitwise the eager ones; the CPU on the first window; a profile of
+    eager updates for the device time and the logits' read rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    eager = Perplexity(ignore_index=LM_IGNORE, device="cuda")
+    captured = Perplexity(ignore_index=LM_IGNORE, device="cuda", jit_update=True)
+    g = torch.Generator(device="cuda").manual_seed(75)
+    eager_s, captured_s, first = [], [], None
+    tokens = 0
+    for index in range(LM_UPDATES):
+        logits, target = lm_window(g, index)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager.update(logits, target)
+        torch.cuda.synchronize()
+        eager_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        captured.update(logits, target)
+        torch.cuda.synchronize()
+        captured_s.append(time.perf_counter() - t0)
+        tokens += int((target != LM_IGNORE).sum())
+        if index == 0:
+            first = (logits.cpu(), target.cpu(), eager.state_dict(persistent_only=False), eager.compute())
+        del logits, target
+    value = eager.compute()
+    states = eager.state_dict(persistent_only=False)
+    captured_states = captured.state_dict(persistent_only=False)
+    for key in states:
+        if not bitwise_equal(states[key], captured_states[key]):
+            raise AssertionError(f"text_eval: captured perplexity state {key} differs from eager")
+    if not bitwise_equal(value, captured.compute()):
+        raise AssertionError("text_eval: captured perplexity value differs from eager")
+    if int(states["count"]) != tokens or not bool(torch.isfinite(value)):
+        raise AssertionError(f"text_eval: perplexity counted {float(states['count'])} of {tokens} tokens: {value}")
+    info = captured._jitted_update.cache_info() if captured._jitted_update is not None else None
+
+    cpu = Perplexity(ignore_index=LM_IGNORE, device="cpu")
+    t0 = time.perf_counter()
+    cpu.update(first[0], first[1])
+    cpu_value = cpu.compute()
+    cpu_s = time.perf_counter() - t0
+    cpu_states = cpu.state_dict(persistent_only=False)
+    compare(first[2]["count"], cpu_states["count"], "perplexity.count", lambda _: (0.0, 0.0))
+    gap = max(compare(first[2]["total_log_probs"], cpu_states["total_log_probs"], "perplexity.total_log_probs",
+                      lambda _: (0.0, PERPLEXITY_RTOL)),
+              compare(first[3], cpu_value, "perplexity.value", lambda _: (0.0, PERPLEXITY_RTOL)))
+    del first
+
+    # last, after every timing: the device time of eager updates from torch.profiler. A
+    # trace in a long run can drop a whole update's kernels, the same in every identical
+    # trace: it counts only when it holds one target gather an update, and is taken again
+    # (up to three times) behind one more lead kernel each time
+    logits, target = lm_window(torch.Generator(device="cuda").manual_seed(76), 0)
+    probe = Perplexity(ignore_index=LM_IGNORE, device="cuda")
+    probe.update(logits, target)
+    torch.cuda.synchronize()
+    for lead in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                torch.cuda._sleep(1)  # a kernel of its own name, left out of the sums below
+            for _ in range(LM_PROFILED):
+                probe.update(logits, target)
+            torch.cuda.synchronize()
+        by_kernel, gathers = {}, 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0) or 0
+            if us > 0 and "spin_kernel" not in e.key:
+                by_kernel[e.key] = us
+                gathers += e.count if "gather" in e.key else 0
+        if gathers == LM_PROFILED:
+            break
+    complete = gathers == LM_PROFILED
+    device_ms = sum(by_kernel.values()) / LM_PROFILED / 1e3 if complete else None
+    logits_bytes = logits.numel() * logits.element_size()
+    bound_ms = logits_bytes / HBM_BYTES_PER_S * 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "windows": LM_UPDATES, "window": list(LM_WINDOW), "vocab": LM_VOCAB, "tokens_scored": tokens,
+        "value": float(value), "eager_us_per_update": statistics.median(eager_s) * 1e6,
+        "captured_us_per_update": statistics.median(captured_s) * 1e6, "captured_bitwise_equal": True,
+        "captured_cache": None if info is None else {k: info[k] for k in ("hits", "misses", "replays",
+                                                                          "capture_seconds")},
+        "cpu_window_s": cpu_s, "cpu_rel_gap": gap,
+        # null unless the trace held every profiled update
+        "device_ms_per_update": device_ms, "updates_traced": gathers, "logits_bytes": logits_bytes,
+        "bound_ms": bound_ms,
+        "logits_read_tb_per_s": logits_bytes / (device_ms / 1e3) / 1e12 if device_ms else None,
+        "bound_share": bound_ms / device_ms if device_ms else None,
+        "top_kernels": [{"name": k[:90], "ms_per_update": us / LM_PROFILED / 1e3} for k, us in top],
+    }
+
+
+def text_eval_phase() -> dict:
+    """The four string loops and perplexity on the card, each against its CPU twin."""
+    from torchmetrics_tpu_torch.functional.text.rouge import _regex_split_sentence, set_rouge_sentence_splitter
+    from torchmetrics_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    # rougeLsum splits sentences with the regex splitter: punkt is not installed and is
+    # never downloaded here
+    set_rouge_sentence_splitter(_regex_split_sentence)
+    loops, data_s = {}, {}
+    try:
+        for loop, data_fn, source, size in TEXT_LOOPS:
+            t0 = time.perf_counter()
+            batches = data_fn()
+            data_s[loop] = time.perf_counter() - t0
+            if sum(len(p) for p, _ in batches) != size:
+                raise AssertionError(f"text_eval: {loop} has {sum(len(p) for p, _ in batches)} items, not {size}")
+            loops[loop] = {"source": source, **text_string_loop(loop, batches)}
+            if loop == "asr":
+                loops[loop]["levenshtein"] = levenshtein_times(batches)
+    finally:
+        set_rouge_sentence_splitter(None)
+    loops["lm"] = {"source": "Llama-2 vocabulary, WikiText-2 test length", **perplexity_loop()}
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"text_eval: the text path launched a kernel: {launches}")
+    return {"phase": "text_eval", "loops": loops, "data_s": data_s, "launches": launches,
+            "cuts": {"corpora": "synthesized from seeds at the published counts and lengths (no dataset is in the repo)",
+                     "cpu_twin": f"the first {TEXT_CPU_BATCHES} batches of each string loop, the first window of "
+                                 "perplexity"}}
 
 
 def profile_loop(metrics: dict, preds, target, batch: int, steps: int, track: str | None = None) -> dict:
@@ -5851,7 +6309,8 @@ def main() -> int:
                                       ("--clustering-eval", clustering_eval_phase),
                                       ("--nominal-eval", nominal_eval_phase),
                                       ("--segmentation-eval", segmentation_eval_phase),
-                                      ("--pairwise-eval", pairwise_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--pairwise-eval", pairwise_eval_phase),
+                                      ("--text-eval", text_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -5906,12 +6365,14 @@ def main() -> int:
           "records": records})
 
     phases = []
-    for name, metrics_fn, data_fn, batch, profile_steps in (
-        ("imagenet_eval", imagenet_metrics, imagenet_data, 500, 10),
-        ("binary_eval", binary_metrics, binary_data, 1 << 18, 4),
+    # the CPU twins take the first 20 of ImageNet's 100 steps and 4 of CTR's 16
+    for name, metrics_fn, data_fn, batch, profile_steps, cpu_steps in (
+        ("imagenet_eval", imagenet_metrics, imagenet_data, 500, 10, 20),
+        ("binary_eval", binary_metrics, binary_data, 1 << 18, 4, 4),
     ):
         t0 = time.perf_counter()
         phase = eval_phase(name, metrics_fn, data_fn(), batch=batch, profile_steps=profile_steps,
+                           cpu_steps=cpu_steps,
                            required=("confusion_matrix", "binned_curve_counts", "weighted_bincount"))
         phases.append(phase)
         emit({**phase, "card": smi, "phase_wall_s": time.perf_counter() - t0})
@@ -5948,7 +6409,7 @@ def main() -> int:
     phases.append(retrieval)
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
-                     segmentation_eval_phase, pairwise_eval_phase):
+                     segmentation_eval_phase, pairwise_eval_phase, text_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

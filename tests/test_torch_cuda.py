@@ -2455,7 +2455,7 @@ def test_a_nominal_matrix_launches_k1_once_a_pair_and_equals_the_cpu(card):
 def test_pairwise_products_on_the_card_run_in_full_float32(card):
     """The linear similarity on the card within float32 rounding of a float64 product,
     which TF32 (10-bit mantissas) would miss by ~1e-3 relative, even with TF32 on
-    process-wide; the flag is restored after the call."""
+    process-wide (the product then runs in float64); the flag is never written."""
     from torchmetrics_tpu_torch.functional import pairwise as fp
 
     g = torch.Generator().manual_seed(35)
@@ -2472,3 +2472,168 @@ def test_pairwise_products_on_the_card_run_in_full_float32(card):
     assert float(((got - want).abs() / want.abs().max()).max()) < 1e-6
     torch.testing.assert_close(fp.pairwise_minkowski_distance(x.to(card), y.to(card), exponent=3).cpu(),
                                fp.pairwise_minkowski_distance(x, y, exponent=3), rtol=1e-5, atol=0)
+
+
+CUDNN_KERNEL_MARKS = ("cudnn", "xmma", "implicit_convolve", "sm80_", "sm90_")
+CONV_CASES = [(dims, channels, planes) for dims in (2, 3) for channels in (1, 3) for planes in (1, 5)]
+
+
+def _conv_inputs(dims: int, channels: int, planes: int):
+    g = torch.Generator().manual_seed(dims * 10 + channels + planes)
+    spatial = (96, 80) if dims == 2 else (12, 40, 36)
+    x = torch.rand(planes, channels, *spatial, generator=g)
+    kernel = torch.rand(channels, 1, *([7] * dims), generator=g) / 49.0
+    return x, kernel
+
+
+def _conv_kernel_names(cases: list) -> list:
+    """For each (dims, channels, planes), the device kernels of one ``_conv2d``/``_conv3d``
+    call on the card with cuDNN's TF32 flag on: the fullest of three traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.functional.image import utils as iu
+
+    torch.backends.cudnn.allow_tf32 = True
+    result = []
+    for dims, channels, planes in cases:
+        x, kernel = (t.cuda() for t in _conv_inputs(dims, channels, planes))
+        conv = iu._conv2d if dims == 2 else iu._conv3d
+        conv(x, kernel, groups=channels)
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                conv(x, kernel, groups=channels)
+                torch.cuda.synchronize()
+            traces.append([e.key for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA and e.count])
+        result.append(max(traces, key=len))
+    assert torch.backends.cudnn.allow_tf32 is True
+    return result
+
+
+@pytest.fixture(scope="module")
+def conv_kernel_names() -> dict:
+    """``_conv_kernel_names`` of every case, traced in a new process (a process that has
+    run many traces may record no device event in its later ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._conv_kernel_names(json.loads(sys.argv[3]))))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), json.dumps(CONV_CASES)],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return dict(zip(CONV_CASES, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("dims, channels, planes", CONV_CASES)
+def test_image_convolutions_reach_no_cudnn_kernel(card, conv_kernel_names, dims, channels, planes):
+    """``_conv2d``/``_conv3d`` with one channel a group, as UQI, SSIM's 3D branch and the
+    uniform filter call them, run on PyTorch's native depthwise kernels (which have no
+    TF32 path) with cuDNN's TF32 flag on, and equal the CPU; a single channel is folded
+    into depthwise form. The flag is never written."""
+    from torchmetrics_tpu_torch.functional.image import utils as iu
+
+    names = conv_kernel_names[(dims, channels, planes)]
+    assert not [n for n in names if any(mark in n for mark in CUDNN_KERNEL_MARKS)], names
+    assert any("conv_depthwise" in n for n in names), names
+    x, kernel = _conv_inputs(dims, channels, planes)
+    conv = iu._conv2d if dims == 2 else iu._conv3d
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        got = conv(x.to(card), kernel.to(card), groups=channels).cpu()
+        assert cudnn.allow_tf32 is True
+    finally:
+        cudnn.allow_tf32 = before
+    torch.testing.assert_close(got, conv(x, kernel, groups=channels), rtol=1e-5, atol=1e-6)
+    exact = (torch.nn.functional.conv2d if dims == 2 else torch.nn.functional.conv3d)(
+        x.double(), kernel.double(), groups=channels)
+    # TF32 (10-bit mantissas) would miss by ~1e-3 of the largest output
+    assert float((got.double() - exact).abs().max()) < 1e-5 * float(exact.abs().max())
+
+
+def test_uqi_of_a_grayscale_image_on_the_card_equals_the_cpu(card):
+    from torchmetrics_tpu_torch.functional.image import universal_image_quality_index
+
+    g = torch.Generator().manual_seed(36)
+    preds, target = torch.rand(2, 1, 64, 72, generator=g), torch.rand(2, 1, 64, 72, generator=g)
+    got = universal_image_quality_index(preds.to(card), target.to(card))
+    torch.testing.assert_close(got.cpu(), universal_image_quality_index(preds, target), rtol=1e-5, atol=1e-6)
+
+
+def _lm_batch(vocab: int, shape: tuple, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    target = torch.randint(0, vocab, shape, generator=g)
+    logits = torch.randn(*shape, vocab, generator=g)
+    logits.scatter_add_(-1, target[..., None], torch.full((*shape, 1), 8.0))
+    target[-1, -shape[1] // 4:] = -100
+    return logits, target
+
+
+def test_perplexity_at_llama_vocabulary_on_the_card_equals_the_cpu(card):
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    on_card, on_cpu = Perplexity(ignore_index=-100, device=card), Perplexity(ignore_index=-100, device="cpu")
+    for seed in range(2):
+        logits, target = _lm_batch(32_000, (2, 256), seed)
+        on_card.update(logits.to(card), target.to(card))
+        on_cpu.update(logits, target)
+    assert on_card.count.device.type == "cuda" and torch.equal(on_card.count.cpu(), on_cpu.count)
+    torch.testing.assert_close(on_card.total_log_probs.cpu(), on_cpu.total_log_probs, rtol=1e-5, atol=0)
+    torch.testing.assert_close(on_card.compute().cpu(), on_cpu.compute(), rtol=1e-5, atol=0)
+
+
+def test_a_captured_perplexity_update_equals_the_eager_one_bitwise(card):
+    from torchmetrics_tpu_torch.text import Perplexity
+
+    eager = Perplexity(ignore_index=-100, device=card)
+    captured = Perplexity(ignore_index=-100, device=card, jit_update=True)
+    for seed in range(4):
+        logits, target = (t.to(card) for t in _lm_batch(32_000, (2, 128), 10 + seed))
+        eager.update(logits, target)
+        captured.update(logits, target)
+    for key in ("total_log_probs", "count"):
+        assert torch.equal(getattr(eager, key), getattr(captured, key)), key
+    assert torch.equal(eager.compute(), captured.compute())
+    info = captured._jitted_update.cache_info()
+    assert info["misses"] == 1 and info["replays"] >= 3, info
+
+
+TEXT_CARD_CASES = {
+    "WordErrorRate": ({}, "error"), "CharErrorRate": ({}, "error"), "MatchErrorRate": ({}, "error"),
+    "WordInfoLost": ({}, "error"), "WordInfoPreserved": ({}, "error"), "EditDistance": ({}, "error"),
+    "EditDistance_none": ({"reduction": "none"}, "error"), "BLEUScore": ({}, "mt"), "SacreBLEUScore": ({}, "mt"),
+    "CHRFScore": ({"return_sentence_level_score": True}, "mt"),
+    "TranslationEditRate": ({"return_sentence_level_score": True}, "mt"),
+    "ExtendedEditDistance": ({"return_sentence_level_score": True}, "mt"), "ROUGEScore": ({"rouge_keys": (
+        "rouge1", "rougeL")}, "mt"), "SQuAD": ({}, "qa"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_CARD_CASES))
+def test_the_states_of_a_string_metric_live_on_the_card(card, name):
+    from torchmetrics_tpu_torch import text as tt
+
+    kw, kind = TEXT_CARD_CASES[name]
+    cls = getattr(tt, name.split("_")[0])
+    preds = ["the cat is on the mat", "über a dog walks", ""]
+    batch = {
+        "error": (preds, ["there is a cat on the mat", "a dog walks", "x"]),
+        "mt": (preds, [["there is a cat on the mat", "a cat is on the mat"], ["a dog walks in the park"], ["x"]]),
+        "qa": ([{"prediction_text": "the 1976", "id": "1"}], [{"answers": {"text": ["1976", "a"]}, "id": "1"}]),
+    }[kind]
+    on_card, on_cpu = cls(device=card, **kw), cls(device="cpu", **kw)
+    for metric in (on_card, on_cpu):
+        metric.update(*batch)
+        metric.update(*batch)
+    for key, state in on_card.state_dict(persistent_only=False).items():
+        for t in state if isinstance(state, list) else [state]:
+            assert t.device.type == "cuda", key
+    got, want = on_card.compute(), on_cpu.compute()
+    flat = lambda v: list(v.values()) if isinstance(v, dict) else (list(v) if isinstance(v, tuple) else [v])  # noqa: E731
+    for a, b in zip(flat(got), flat(want)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)

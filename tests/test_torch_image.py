@@ -156,6 +156,9 @@ def test_gaussian_window_matches_and_is_cached(size, sigma):
 
 
 def test_convolutions_run_in_full_float32_and_restore_the_flag():
+    """The convolution helpers leave cuDNN's process-wide TF32 flag as it was, during the
+    call too: on the card they run on PyTorch's depthwise kernels, which have no TF32
+    path (card test ``test_image_convolutions_reach_no_cudnn_kernel``)."""
     cudnn = torch.backends.cudnn
     before = cudnn.allow_tf32
     seen = []
@@ -168,9 +171,24 @@ def test_convolutions_run_in_full_float32_and_restore_the_flag():
     torch.nn.functional.conv2d = spy
     try:
         tu._conv2d(torch.ones(1, 2, 5, 5), torch.ones(2, 1, 3, 3), groups=2)
+        tu._conv2d(torch.ones(5, 1, 5, 5), torch.ones(1, 1, 3, 3), groups=1)
     finally:
         torch.nn.functional.conv2d = original
-    assert seen == [False] and cudnn.allow_tf32 == before
+    assert seen == [before, before] and cudnn.allow_tf32 == before
+
+
+@pytest.mark.parametrize("planes", [1, 5])
+@pytest.mark.parametrize("dims", [2, 3])
+def test_a_single_channel_convolution_folded_into_depthwise_equals_the_plain_one(planes, dims):
+    conv = torch.nn.functional.conv2d if dims == 2 else torch.nn.functional.conv3d
+    g = torch.Generator().manual_seed(planes * 10 + dims)
+    x = torch.rand(planes, 1, *([9] * dims), generator=g)
+    kernel = torch.rand(1, 1, *([3] * dims), generator=g)
+    got = tu._depthwise_single_channel(conv, x, kernel)
+    want = conv(x, kernel)
+    assert got.shape == want.shape
+    # the same window sums in another order: float32 rounding of sums up to 27
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------------------------- SSIM

@@ -5,7 +5,9 @@ The cases of ``tests/domains/test_clustering_nominal_segmentation_pairwise.py``'
 with itself, Minkowski, the zero diagonal, every reduction) run on the same seeded
 numpy inputs through both packages, with and without ``y``, plus the gradients of the
 Manhattan and Minkowski distances (``torch.cdist``) against JAX's, the validation
-errors and the ``__all__`` list.
+errors and the ``__all__`` list. ``utils.compute._matmul_full_float32`` writes no
+process-wide setting: it reads the TF32 flag, multiplies in float64 where it is on, and
+a flag another thread sets during a product survives it.
 
 Cosine similarities agree within 1e-5 absolute; the others within 1e-5 relative to
 the matrix's largest magnitude (an inner product near 0 has no relative precision:
@@ -161,3 +163,72 @@ def test_the_all_lists_equal_jax():
     assert tpw.__all__ == jpw.__all__
     assert set(jpw.__all__) <= set(tf.__all__)
     assert "pairwise" in tf.__all__ and "pairwise" in jf.__all__
+
+
+# ------------------------------------------------------- the full-float32 product
+
+@pytest.fixture
+def matmul_precision():
+    """``torch.backends.cuda.matmul.fp32_precision`` restored after the test."""
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    yield matmul
+    matmul.fp32_precision = before
+
+
+@pytest.mark.parametrize("precision", ["ieee", "tf32"])
+def test_the_full_float32_product_writes_no_process_wide_setting(matmul_precision, precision, monkeypatch):
+    """Under IEEE float32 it is ``torch.matmul`` as it is; where a caller has turned TF32
+    on it multiplies in float64 and rounds once; the flag is never switched, during the
+    product either."""
+    from torchmetrics_tpu_torch.utils import compute
+
+    matmul_precision.fp32_precision = precision
+    seen, original = [], torch.matmul
+
+    def spy(a, b):
+        seen.append((matmul_precision.fp32_precision, a.dtype))
+        return original(a, b)
+
+    monkeypatch.setattr(torch, "matmul", spy)
+    a, b = torch.from_numpy(WIDE_X), torch.from_numpy(WIDE_Y.T.copy())
+    got = compute._matmul_full_float32(a, b)
+    want_dtype = torch.float32 if precision == "ieee" else torch.float64
+    assert seen == [(precision, want_dtype)] and matmul_precision.fp32_precision == precision
+    assert got.dtype == torch.float32
+    if precision == "tf32":
+        assert torch.equal(got, (a.double() @ b.double()).float())
+
+
+def test_a_flag_another_thread_sets_during_a_product_survives_it(matmul_precision, monkeypatch):
+    import threading
+
+    from torchmetrics_tpu_torch.utils import compute
+
+    matmul_precision.fp32_precision = "ieee"
+    inside, flag_set = threading.Event(), threading.Event()
+    original = torch.matmul
+
+    def slow(a, b):
+        inside.set()
+        assert flag_set.wait(10)
+        return original(a, b)
+
+    monkeypatch.setattr(torch, "matmul", slow)
+    worker = threading.Thread(target=compute._matmul_full_float32, args=(torch.ones(2, 3), torch.ones(3, 2)))
+    worker.start()
+    assert inside.wait(10)
+    matmul_precision.fp32_precision = "tf32"  # another thread turns TF32 on mid-product
+    flag_set.set()
+    worker.join(10)
+    assert not worker.is_alive() and matmul_precision.fp32_precision == "tf32"
+
+
+def test_the_pairwise_products_under_tf32_stay_full_float32_on_the_cpu(matmul_precision):
+    matmul_precision.fp32_precision = "tf32"
+    x, y = torch.from_numpy(WIDE_X), torch.from_numpy(WIDE_Y)
+    got = tpw.pairwise_linear_similarity(x, y)
+    assert torch.equal(got, (x.double() @ y.double().T).float())
+    _assert_close(tpw.pairwise_cosine_similarity(x, y),
+                  jpw.pairwise_cosine_similarity(jnp.asarray(WIDE_X), jnp.asarray(WIDE_Y)), "cosine")
+    assert matmul_precision.fp32_precision == "tf32"

@@ -2,7 +2,7 @@
 
 The battery of ``tests/plotting/test_plot_battery.py`` over the port's exports: every
 port metric class that the JAX battery instantiates (the classification family, the
-aggregation, regression and image metrics) is built in both packages from the same
+aggregation, regression, image and text metrics) is built in both packages from the same
 seeded numpy inputs, updated once and plotted with matplotlib's Agg backend. The two
 figures must hold the same data: every line's x/y (float32 values within 1e-6), every
 heatmap's image array and every text, title, axis label, tick label, legend entry
@@ -62,8 +62,13 @@ def _host(x):
     return np.asarray(x)
 
 
+def _is_text(a) -> bool:
+    """A string input (or a list or dict of them): the text metrics take it as it is."""
+    return isinstance(a, (str, dict)) or (isinstance(a, (list, tuple)) and any(_is_text(x) for x in a))
+
+
 def _port_args(args):
-    return tuple(torch.as_tensor(np.asarray(a)) for a in args)
+    return tuple(a if _is_text(a) else torch.as_tensor(np.asarray(a)) for a in args)
 
 
 def _pair(name):

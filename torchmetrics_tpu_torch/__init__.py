@@ -24,7 +24,9 @@ variance, RSE); the eleven retrieval metrics, which score every query in one bat
 pass; the wrappers (bootstrap, classwise, min/max, multioutput, multitask, running,
 input transformers, the tracker and feature sharing); the clustering scores (extrinsic
 and intrinsic), the nominal association statistics, the segmentation scores and the
-pairwise distances (``functional.pairwise``); and the fleet plane (``fleet``, ``obs.fleet``) with the live
+pairwise distances (``functional.pairwise``); the text domain's string and token
+metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity; not
+yet BERTScore and InfoLM); and the fleet plane (``fleet``, ``obs.fleet``) with the live
 introspection server (``obs.server``, ``python -m torchmetrics_tpu_torch.obs.serve``).
 """
 
@@ -48,6 +50,8 @@ from torchmetrics_tpu_torch.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.segmentation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.segmentation import __all__ as _segmentation_all
+from torchmetrics_tpu_torch.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.text import __all__ as _text_all
 from torchmetrics_tpu_torch.wrappers import (
     BootStrapper,
     ClasswiseWrapper,
@@ -63,6 +67,6 @@ __version__ = "0.1.0.dev0"
 __all__ = [
     "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
     *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, *_clustering_all, *_nominal_all,
-    *_segmentation_all, "BootStrapper", "ClasswiseWrapper",
+    *_segmentation_all, *_text_all, "BootStrapper", "ClasswiseWrapper",
     "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 ]

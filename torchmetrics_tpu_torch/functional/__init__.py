@@ -9,6 +9,7 @@ from torchmetrics_tpu_torch.functional import (
     regression,
     retrieval,
     segmentation,
+    text,
 )
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
@@ -26,9 +27,11 @@ from torchmetrics_tpu_torch.functional.retrieval import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.retrieval import __all__ as _retrieval_all
 from torchmetrics_tpu_torch.functional.segmentation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.segmentation import __all__ as _segmentation_all
+from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
-    "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation",
+    "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation", "text",
     *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all,
-    *_retrieval_all, *_segmentation_all,
+    *_retrieval_all, *_segmentation_all, *_text_all,
 ]

@@ -2,8 +2,9 @@
 
 Counterpart of ``torchmetrics_tpu/functional/image/utils.py``. The JAX package asks
 its convolutions for ``Precision.HIGHEST``, since reduced-precision passes shift
-SSIM-class scores by about 1e-4; on the card cuDNN runs float32 convolutions in TF32
-by default, so ``_conv2d``/``_conv3d`` switch TF32 off for their own call only.
+SSIM-class scores by about 1e-4; on the card cuDNN may run float32 convolutions in
+TF32 (on by default), so ``_conv2d``/``_conv3d`` keep every convolution on PyTorch's
+native depthwise kernels, which have no TF32 path, and set no flag.
 Padding follows ``jnp.pad``'s ``reflect`` and ``symmetric`` modes exactly, for pads
 of any size, by gathering with index maps that numpy builds. Windows and index maps
 are built once per shape and device and cached; callers never write to them.
@@ -81,24 +82,45 @@ def _gaussian_kernel_3d(
     return kernel.expand(channel, 1, *kernel_size)
 
 
-def _full_float32():
-    """cuDNN in full float32 (no TF32) inside the block; the process-wide flag is restored after."""
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(
-        enabled=cudnn.enabled, benchmark=cudnn.benchmark, deterministic=cudnn.deterministic, allow_tf32=False
-    )
+def _depthwise_single_channel(conv, x: Tensor, kernel: Tensor) -> Tensor:
+    """``conv(x, kernel)`` of a single-channel ``x`` (``[N, 1, ...]``) as one image whose
+    channels are its N planes (a plane alone doubled), each with its own copy of the
+    window: a depthwise convolution with the same sums."""
+    planes = x.shape[0]
+    folded = x.contiguous().reshape(1, planes, *x.shape[2:])
+    if planes == 1:
+        folded = torch.cat((folded, folded), dim=1)
+    width = folded.shape[1]
+    out = conv(folded, kernel.expand(width, *kernel.shape[1:]).contiguous(), groups=width)
+    return out[0, :planes].unsqueeze(1)
+
+
+def _grouped_conv(conv, x: Tensor, kernel: Tensor, groups: int) -> Tensor:
+    """A VALID grouped convolution with one input channel a group, in full float32 on the
+    card without touching a process-wide flag.
+
+    On a CUDA tensor PyTorch runs a float32 convolution with more than one group of one
+    channel on its native depthwise kernels (plain FMAs, no TF32); with a single group
+    it goes to cuDNN, whose algorithms may use TF32 (``cudnn.allow_tf32`` is on by
+    default), and so does a channels-last input. So a single-channel input runs as
+    ``_depthwise_single_channel`` and every input is made contiguous. The CPU runs the
+    convolution as it is."""
+    kernel = kernel.to(x.dtype).contiguous()
+    if not x.is_cuda:
+        return conv(x, kernel, groups=groups)
+    if groups == 1 and x.shape[1] == 1:
+        return _depthwise_single_channel(conv, x, kernel)
+    return conv(x.contiguous(), kernel, groups=groups)
 
 
 def _conv2d(x: Tensor, kernel: Tensor, groups: int = 1) -> Tensor:
-    """VALID 2D convolution, NCHW/OIHW, in full float32 (see the module docstring)."""
-    with _full_float32():
-        return F.conv2d(x, kernel.to(x.dtype).contiguous(), groups=groups)
+    """VALID 2D convolution, NCHW/OIHW, in full float32 (``_grouped_conv``)."""
+    return _grouped_conv(F.conv2d, x, kernel, groups)
 
 
 def _conv3d(x: Tensor, kernel: Tensor, groups: int = 1) -> Tensor:
-    """VALID 3D convolution, NCDHW/OIDHW, in full float32 (see the module docstring)."""
-    with _full_float32():
-        return F.conv3d(x, kernel.to(x.dtype).contiguous(), groups=groups)
+    """VALID 3D convolution, NCDHW/OIDHW, in full float32 (``_grouped_conv``)."""
+    return _grouped_conv(F.conv3d, x, kernel, groups)
 
 
 def _avg_pool2d(x: Tensor) -> Tensor:

@@ -6,8 +6,6 @@ the full-float32 matmul that stands for the JAX package's ``Precision.HIGHEST``.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
-
 import torch
 
 Tensor = torch.Tensor
@@ -24,24 +22,24 @@ def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float = 1.0, axi
     return (area * direction).to(torch.float32)
 
 
-@contextmanager
-def _full_float32_matmul():
-    """``torch.matmul`` in full float32 (no TF32) inside the block, as the JAX package's
-    ``Precision.HIGHEST``; the process-wide setting is restored after.
-
-    Not thread-safe: the setting is the process's, so a matmul that another thread runs
-    inside the block also runs without TF32, and a change that another thread makes to
-    the setting inside the block is undone on the way out."""
-    matmul = torch.backends.cuda.matmul
-    before = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        matmul.fp32_precision = before
+def _cuda_matmul_precision() -> str:
+    """The float32 precision cuBLAS matmuls run at: ``torch.backends.cuda.matmul``'s
+    ``fp32_precision``, or the process-wide ``torch.backends.fp32_precision`` where that
+    reads ``"none"`` (inherit); ``"ieee"`` where both do. Only read, never written."""
+    precision = torch.backends.cuda.matmul.fp32_precision
+    if precision == "none":
+        precision = getattr(torch.backends, "fp32_precision", "none")
+    return "ieee" if precision == "none" else precision
 
 
 def _matmul_full_float32(a: Tensor, b: Tensor) -> Tensor:
-    """``a @ b`` in full float32 (``_full_float32_matmul``)."""
-    with _full_float32_matmul():
+    """``a @ b`` in full float32, as the JAX package's ``Precision.HIGHEST``.
+
+    ``torch.matmul`` takes no precision argument, and the setting is the process's, so
+    this writes none: where matmuls run in IEEE float32 (PyTorch's default) it is
+    ``torch.matmul``; where a caller has turned TF32 (or lower) on, it multiplies in
+    float64 and rounds once to float32, which no other thread's product notices. On an
+    H100, FP64 on the tensor cores peaks near FP32 without TF32."""
+    if _cuda_matmul_precision() == "ieee":
         return torch.matmul(a, b)
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.result_type(a, b))
