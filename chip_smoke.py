@@ -38,7 +38,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    between, then one profile of each grouped loop. Integer states and every value of a
    group of two or more must be bitwise the per-metric loop's; other floats within
    the classification tolerance.
-7. ``pipeline_eval``: both eval loops' grouped collections three ways, in three
+7. ``pipeline_eval``: both eval loops' grouped collections three ways, in two
    alternating rounds: the collection's eager loop, ``MetricPipeline`` with ``fuse=1``
    (one CUDA-graph replay a step) and with ``fuse=8`` (one replay a chunk of 8; K1,
    K2 and K3 inside the graph), each captured by its warmup before the clock starts.
@@ -50,8 +50,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    counted (launches per step times the profiled steps; a trace short of one is taken
    again, twice at most), both
    pipelines equal the eager loop on the card (integers exactly, floats within the
-   classification tolerance), the fused one equals its CPU run on a prefix of 12
-   ImageNet and 5 CTR batches, the replays equal the chunks with no capture, degraded
+   classification tolerance), the fused one equals its CPU run on a prefix of 9
+   ImageNet and 2 CTR batches, the replays equal the chunks with no capture, degraded
    chunk or eager batch in the loop, and a fault run (NaN put into ImageNet batches
    13 and 42 under the ``quarantine`` policy) quarantines exactly those update
    indices, replays their two chunks per batch and equals the eager loop without them.
@@ -74,8 +74,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    ``FencedBundleError``, no alert fires on clean data and the NaN fires the non-finite
    rule with one flight dump.
 9. ``mux_eval``: the tenant multiplexer at W = 8 and 64 tenants of each grouped
-   collection, batches of 256 rows, max(2, 256 // W) rounds (256 tenant-updates a
-   pass): one ``TenantMultiplexer`` (one width bucket, one captured graph holding every
+   collection, batches of 256 rows, max(3, 128 // W) rounds (128 tenant-updates a
+   pass at W = 8, 192 at W = 64): one ``TenantMultiplexer`` (one width bucket, one captured graph holding every
    row's K1/K2/K3 launches, one replay per group) against W tenant sessions of
    ``MetricPipeline(fuse=1)``, both warmed up and fed a warm round before the clock,
    timed in turns (mux, baseline, baseline, mux). It prints µs per tenant-update of
@@ -83,8 +83,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    dispatch counted from the replays, the captured variants and capture seconds of
    both sides, the peak device memory, the host copies one dispatch makes and their
    µs, and the cost ledger's flops and bytes per fused row beside the kernels' own
-   counts. It fails unless every tenant is bitwise its own eager loop on the card (two
-   also equal the CPU), one NaN batch among 8 tenants under ``warn_skip`` is isolated to
+   counts. It fails unless every tenant is bitwise its own eager loop on the card (one
+   also equals the CPU), one NaN batch among 8 tenants under ``warn_skip`` is isolated to
    its tenant with one flight dump naming it, an admission controller sheds and defers
    one tenant each (counted, every priced charge with flops and bytes), a tenant's
    slice taken mid-stream and restored in a spawned process finishes bitwise the
@@ -224,16 +224,45 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    per-sentence lists within 1e-6), perplexity on the first window equals the CPU within
    1e-5 relative, the captured perplexity is bitwise the eager one, and no K1-K5 kernel
    was launched.
-21. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+21. ``audio_eval``: two published audio evaluations, synthesized from seeds at their
+   counts and rates (speech stands in as band-limited noise, amplitude-modulated at a
+   syllable rate and gated into phrases). Separation: WSJ0-2mix's test set ("tt", min
+   mode, 8 kHz), 3,000 two-speaker mixtures cropped to 4 s, batches of 16, each estimate
+   its source plus the other's crosstalk and noise about 10 dB below it, half the rows
+   with the speakers swapped: PIT on SI-SDR (fed the swapped rows; on the first batch the
+   functional must find the swap and ``pit_permutate`` undo it), SI-SDR, SDR (512 taps),
+   SA-SDR, SNR and SI-SNR. Enhancement: VoiceBank+DEMAND's test set, 824 utterances at 16
+   kHz of 1.5-6 s, batches of 8 cropped to their shortest, the clean speech plus coloured
+   noise at 5-20 dB: STOI, ESTOI, SRMR (``fast=False`` and ``fast=True``), SNR, SI-SNR and
+   C-SI-SNR on a 512-point STFT. It prints per loop the wall seconds, µs per update and
+   seconds per ``compute`` of each metric (each call timed alone) and the values; SDR's
+   device ms per update and its solve's share from a profile, SRMR's peak memory at the
+   longest batch, and a profile of two enhancement steps. It fails unless each loop's
+   states and values after its first 2 batches equal the same batches with
+   ``device="cpu"`` (``total`` exactly; per sample SNR-family scores within 1e-4 dB, SDR
+   1e-2 dB, STOI 1e-5, SRMR 1e-4 relative; ``sum_score`` within that times ``total``),
+   every value is finite and in range, and no K1-K5 kernel was launched.
+22. ``image_quality_eval``: PanCollection's WorldView-3 test sets (Deng et al., IEEE GRSM
+   2022), synthesized from seeds at their sizes: 20 reduced-resolution images (an 8-band
+   256 x 256 ground truth beside the fused output; SAM, ERGAS at ratio 4, SCC, VIF, RASE)
+   and 20 full-resolution ones (fused output and panchromatic image 8 x 512 x 512, the
+   multispectral image 8 x 128 x 128; D-lambda, D-s with and without ``pan_lr``, QNR),
+   batches of 4, and the image gradients of the fused images. It prints µs per update and
+   seconds per ``compute`` of each metric, the values and a profile of each resolution.
+   It fails unless the first 4 images of each resolution give on the card what they give
+   with ``device="cpu"`` (1e-5 plus 1e-6 relative; SAM's pixel sum 1e-5 relative; the
+   gradients bitwise), every value is finite and in range, and no K1-K5 kernel was
+   launched.
+23. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    4 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-22. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+24. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-23. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+25. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -254,7 +283,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-24. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+26. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -280,7 +309,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-25. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+27. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -370,7 +399,7 @@ builds the kernels and prints only the ``chaos_eval`` phase's lines (its checks
 included).
 
     python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
-        --segmentation-eval --pairwise-eval --text-eval
+        --segmentation-eval --pairwise-eval --text-eval --audio-eval --image-quality-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -1292,11 +1321,12 @@ def collection_eval_phase() -> tuple:
 # the fused chunk of the third variant, and the two faulted ImageNet batches (chunks 1
 # and 5 of 8) of the fault run
 PIPELINE_FUSE = 8
-PIPELINE_ROUNDS = 3
+PIPELINE_ROUNDS = 2
 PIPELINE_FAULTS = (13, 42)
 # batches of each set that the card's fused pipeline and the CPU's run alike: a full
-# chunk and a padded one (ImageNet 8 + 4; CTR 5, padded to 8)
-PIPELINE_CPU_BATCHES = {"imagenet": 12, "binary": 5}
+# chunk and a padded one (ImageNet 8 + 1; CTR 2, padded to 8): a CPU step costs 1.7 s of
+# ImageNet and 7 s of CTR (its 1000-threshold curves)
+PIPELINE_CPU_BATCHES = {"imagenet": 9, "binary": 2}
 PIPELINE_VARIANTS = ("eager", "fuse_1", "fuse_8")
 
 
@@ -1995,7 +2025,7 @@ def session_run_with_nan(kind: str, metrics_fn, batches: list) -> dict:
 
 MUX_WIDTHS = (8, 64)
 MUX_BATCH = 256
-MUX_TENANT_UPDATES = 256
+MUX_TENANT_UPDATES = 128
 # timed passes of each side, in the order mux, baseline, baseline, mux
 MUX_PASSES = 2
 # the tenants the admission check holds to a small quota: one shed, one deferred
@@ -2003,12 +2033,13 @@ MUX_QUOTA = 2
 # the NaN check: tenants of the group, the tenant whose batch is poisoned, its round
 MUX_NAN_TENANTS = 8
 MUX_NAN_AT = (3, 1)
-MUX_CPU_TENANTS = 2
+MUX_CPU_TENANTS = 1
 MUX_KERNELS = ("confusion_matrix", "binned_curve_counts", "weighted_bincount")
 
 
 def mux_rounds(width: int) -> int:
-    return max(2, MUX_TENANT_UPDATES // width)
+    # one round past the admission quota, so that the quota sheds and defers at every width
+    return max(MUX_QUOTA + 1, MUX_TENANT_UPDATES // width)
 
 
 def mux_slice(preds, target, k: int):
@@ -2190,7 +2221,7 @@ def mux_cell(kind: str, metrics_fn, data, width: int, root: str) -> tuple:
     torch.cuda.synchronize()
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
     # 1. every tenant bitwise its eager loop on the card (the shed tenant folds what was
-    # admitted); at the widest W two tenants also against the CPU (at W=8 the NaN run's do)
+    # admitted); at the widest W the first tenant also against the CPU (at W=8 the NaN run's does)
     t0 = time.perf_counter()
     cpu_s = 0.0
     for j, t in enumerate(tenants):
@@ -2363,12 +2394,12 @@ def mux_restore_worker(specs: list, queue) -> None:
 def mux_eval_phase() -> dict:
     """The tenant multiplexer at W = 8 and 64 tenants of each grouped collection.
 
-    For each (collection, W): W tenants fed 256-row batches for max(2, 256 // W) rounds,
+    For each (collection, W): W tenants fed 256-row batches for max(3, 128 // W) rounds,
     through one ``TenantMultiplexer`` (one captured graph for the width, one replay per
     group) and through W tenant sessions of ``MetricPipeline(fuse=1)`` (one replay per
     batch), each warmed up and fed a warm round before the clock, then timed in turns
     (mux, baseline, baseline, mux). It fails unless: (1) every tenant's state is bitwise
-    its batches through its own eager collection on the card and two tenants equal the
+    its batches through its own eager collection on the card and one tenant equals the
     CPU within the classification tolerance; (2) one NaN batch of one tenant among 8
     under ``warn_skip`` leaves that tenant equal to its guarded eager loop, the other 7
     fused, one flight dump naming it; (3) an admission controller sheds one tenant's
@@ -4505,6 +4536,554 @@ def text_eval_phase() -> dict:
                                  "perplexity"}}
 
 
+# ------------------------------------------------------------------------ audio
+
+# Two published audio evaluations at their sizes, synthesized from seeds (no recording
+# is in the repo or downloaded). Speech stands in as noise shaped to a 1/sqrt(f) spectrum
+# between 100 Hz and 3.8 kHz, amplitude-modulated at a syllable rate of 3-6 Hz (silent
+# half a cycle) and gated into phrases by a 0.2-0.5 Hz envelope that drops 20 dB.
+# WSJ0-2mix, test set "tt", min mode, 8 kHz: 3,000 two-speaker mixtures, cropped to 4 s
+# (32,000 samples; the set's mixtures average about 5 s), batches of 16. Each estimate
+# is its source plus crosstalk of the other source and noise, about 10 dB below it, and
+# half the rows come with the speakers swapped, for PIT to find.
+WSJ0_MIXTURES = 3000
+WSJ0_FS = 8000
+WSJ0_SAMPLES = 32_000
+WSJ0_BATCH = 16
+# VoiceBank+DEMAND test set: 824 utterances at 16 kHz, lengths drawn between 1.5 and 6 s,
+# batches of 8 cropped to the batch's shortest; each enhanced output is the clean
+# utterance plus coloured noise at 5-20 dB SNR.
+VOICEBANK_UTTERANCES = 824
+VOICEBANK_FS = 16_000
+VOICEBANK_SECONDS = (1.5, 6.0)
+VOICEBANK_BATCH = 8
+STFT_FFT = 512
+STFT_HOP = 128
+AUDIO_CPU_BATCHES = 2
+AUDIO_DB_ATOL = 1e-4  # SNR, SI-SNR, SI-SDR, SA-SDR, C-SI-SNR, PIT on SI-SDR, per sample
+AUDIO_SDR_ATOL = 1e-2  # float32 Toeplitz solves by cuSOLVER and LAPACK, per sample
+AUDIO_STOI_ATOL = 1e-5
+AUDIO_SRMR_RTOL = 1e-4
+AUDIO_PROFILED = 3
+# kernels of a batched dense LU solve (MAGMA's and cuBLAS's, as torch.linalg.solve runs
+# it), by name; SDR's own steps are FFTs, gathers and elementwise, so every product
+# kernel in its trace belongs to the solve
+SOLVE_KERNELS = ("getrf", "getf2", "getrs", "trsm", "laswp", "pivinfo", "displace_pointers", "gemm", "ipiv",
+                 "magma", "cusolver")
+
+
+def speech_like(g, rows: int, samples: int, fs: int, device: str = "cuda"):
+    """``rows`` seeded stand-ins for speech of ``samples`` samples at ``fs``, unit power."""
+    import math
+
+    import torch
+
+    spec = torch.fft.rfft(torch.randn(rows, samples, generator=g, device=device))
+    f = torch.fft.rfftfreq(samples, 1.0 / fs, device=device)
+    band = ((f >= 100) & (f <= min(3800.0, fs / 2 - 100))).float() / torch.sqrt(f.clamp(min=100.0) / 100.0)
+    x = torch.fft.irfft(spec * band, n=samples)
+    t = torch.arange(samples, device=device) / fs
+    syllables = 3 + 3 * torch.rand(rows, 1, generator=g, device=device)
+    phrases = 0.2 + 0.3 * torch.rand(rows, 1, generator=g, device=device)
+    phase = 2 * math.pi * torch.rand(rows, 2, generator=g, device=device)
+    envelope = torch.sin(2 * math.pi * syllables * t + phase[:, :1]).clamp(min=0).sqrt()
+    envelope = envelope * (0.1 + 0.9 * (torch.sin(2 * math.pi * phrases * t + phase[:, 1:]) > -0.5))
+    x = x * envelope
+    return x / x.pow(2).mean(dim=-1, keepdim=True).sqrt().clamp(min=1e-8)
+
+
+def wsj0_2mix_batches(seed: int = 80) -> list:
+    """(the estimates with half the rows' speakers swapped, the estimates in source order,
+    the sources, the swapped rows) for each batch of the WSJ0-2mix test set, made on the
+    card."""
+    import torch
+
+    batches = []
+    for index, start in enumerate(range(0, WSJ0_MIXTURES, WSJ0_BATCH)):
+        rows = min(WSJ0_BATCH, WSJ0_MIXTURES - start)
+        g = torch.Generator(device="cuda").manual_seed(seed * 100_000 + index)
+        sources = speech_like(g, 2 * rows, WSJ0_SAMPLES, WSJ0_FS).reshape(rows, 2, WSJ0_SAMPLES)
+        noise = speech_like(g, 2 * rows, WSJ0_SAMPLES, WSJ0_FS).reshape(rows, 2, WSJ0_SAMPLES)
+        # crosstalk at -14 dB and noise at -12 dB: about 10 dB below the source
+        estimates = sources + 0.2 * sources.flip(1) + 0.25 * noise
+        swapped = torch.rand(rows, generator=g, device="cuda") < 0.5
+        shuffled = torch.where(swapped[:, None, None], estimates.flip(1), estimates)
+        batches.append((shuffled, estimates, sources, swapped))
+    return batches
+
+
+def voicebank_batches(seed: int = 81) -> list:
+    """(enhanced, clean) for each batch of the VoiceBank+DEMAND test set, made on the card,
+    each batch cropped to its shortest utterance."""
+    import numpy as np
+    import torch
+
+    lengths = np.random.RandomState(seed).uniform(*VOICEBANK_SECONDS, VOICEBANK_UTTERANCES)
+    batches = []
+    for index, start in enumerate(range(0, VOICEBANK_UTTERANCES, VOICEBANK_BATCH)):
+        rows = min(VOICEBANK_BATCH, VOICEBANK_UTTERANCES - start)
+        samples = int(lengths[start:start + rows].min() * VOICEBANK_FS)
+        g = torch.Generator(device="cuda").manual_seed(seed * 100_000 + index)
+        clean = speech_like(g, rows, samples, VOICEBANK_FS)
+        # DEMAND's noises are coloured: low-passed white noise at 5-20 dB SNR
+        noise = torch.randn(rows, samples, generator=g, device="cuda").cumsum(-1)
+        noise = noise - noise.mean(dim=-1, keepdim=True)
+        noise = noise / noise.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        snr_db = 5 + 15 * torch.rand(rows, 1, generator=g, device="cuda")
+        batches.append((clean + noise * 10 ** (-snr_db / 20), clean))
+    return batches
+
+
+class Spectrogram:
+    """Feeds a C-SI-SNR metric the 512-point STFT (hop 128, Hann window) of each pair."""
+
+    def __init__(self, metric):
+        self.metric = metric
+
+    def update(self, preds, target) -> None:
+        import torch
+
+        window = torch.hann_window(STFT_FFT, device=preds.device)
+        spec = [torch.stft(x, STFT_FFT, STFT_HOP, window=window, return_complex=True) for x in (preds, target)]
+        self.metric.update(*spec)
+
+    def compute(self):
+        return self.metric.compute()
+
+    def state_dict(self, persistent_only: bool = True) -> dict:
+        return self.metric.state_dict(persistent_only=persistent_only)
+
+
+def separation_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import audio as ta
+    from torchmetrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio
+
+    kw = {"device": device}
+    return {
+        "pit_si_sdr": ta.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, eval_func="max", **kw),
+        "si_sdr": ta.ScaleInvariantSignalDistortionRatio(**kw),
+        "sdr": ta.SignalDistortionRatio(filter_length=512, **kw),
+        "sa_sdr": ta.SourceAggregatedSignalDistortionRatio(**kw),
+        "snr": ta.SignalNoiseRatio(**kw),
+        "si_snr": ta.ScaleInvariantSignalNoiseRatio(**kw),
+    }
+
+
+def enhancement_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import audio as ta
+
+    kw = {"device": device}
+    return {
+        "stoi": ta.ShortTimeObjectiveIntelligibility(VOICEBANK_FS, **kw),
+        "estoi": ta.ShortTimeObjectiveIntelligibility(VOICEBANK_FS, extended=True, **kw),
+        "srmr": PredsOnly(ta.SpeechReverberationModulationEnergyRatio(VOICEBANK_FS, **kw)),
+        "srmr_fast": PredsOnly(ta.SpeechReverberationModulationEnergyRatio(VOICEBANK_FS, fast=True, **kw)),
+        "snr": ta.SignalNoiseRatio(**kw),
+        "si_snr": ta.ScaleInvariantSignalNoiseRatio(**kw),
+        "c_si_snr": Spectrogram(ta.ComplexScaleInvariantSignalNoiseRatio(**kw)),
+    }
+
+
+def _audio_tolerance(where: str):
+    """(atol, rtol) of a mean score's ``value`` and of its ``sum_score`` state (a sum of
+    ``total`` per-sample scores: the per-sample bound times the count, ``total`` equal)."""
+    metric = where.split(".")[1]
+    if metric.startswith("srmr"):
+        return 0.0, AUDIO_SRMR_RTOL
+    atol = AUDIO_SDR_ATOL if metric == "sdr" else AUDIO_STOI_ATOL if "stoi" in metric else AUDIO_DB_ATOL
+    if ".sum_score#" in where:
+        atol *= int(where.split("#")[1])
+    return atol, 0.0
+
+
+def timed_loop(metrics: dict, batches: list, snapshot_after: int | None = None) -> tuple:
+    """Every metric updated batch by batch, each update and the final computes timed alone
+    (host clock around the call and a synchronise); returns (values, states, update
+    seconds per metric, loop seconds, the (values, states) after ``snapshot_after``
+    batches), and the compute seconds per metric as ``seconds["compute"]``."""
+    import torch
+
+    seconds = dict.fromkeys(metrics, 0.0)
+    compute_s = {}
+    snapshot = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step, (preds, target) in enumerate(batches, 1):
+        for name, m in metrics.items():
+            t1 = time.perf_counter()
+            m.update(preds, target)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - t1
+        if step == snapshot_after:
+            paused = time.perf_counter()
+            snapshot = ({name: m.compute() for name, m in metrics.items()},
+                        {name: m.state_dict(persistent_only=False) for name, m in metrics.items()})
+            torch.cuda.synchronize()
+            t0 += time.perf_counter() - paused
+    values = {}
+    for name, m in metrics.items():
+        t1 = time.perf_counter()
+        values[name] = m.compute()
+        torch.cuda.synchronize()
+        compute_s[name] = time.perf_counter() - t1
+    loop_s = time.perf_counter() - t0
+    states = {name: m.state_dict(persistent_only=False) for name, m in metrics.items()}
+    return values, states, {**seconds, "compute": compute_s}, loop_s, snapshot or (values, states)
+
+
+def audio_twin(metrics_fn, batches: list, snapshot) -> dict:
+    """The first AUDIO_CPU_BATCHES batches with ``device="cpu"`` against the card's states
+    and values after the same batches: ``total`` exactly, the mean within its tolerance
+    and ``sum_score`` within that times ``total``."""
+    card_values, card_states = snapshot
+    cpu_values, cpu_states, _, cpu_s, _ = timed_loop(metrics_fn("cpu"), to_cpu(batches[:AUDIO_CPU_BATCHES]))
+    gaps = {}
+    for name, state in card_states.items():
+        total = int(cpu_states[name]["total"])
+        compare(state["total"], cpu_states[name]["total"], f"state.{name}.total", lambda _: (0.0, 0.0))
+        gaps[name] = max(compare(state["sum_score"], cpu_states[name]["sum_score"],
+                                 f"state.{name}.sum_score#{total}", _audio_tolerance),
+                         compare(card_values[name], cpu_values[name], f"value.{name}", _audio_tolerance))
+    return {"batches": AUDIO_CPU_BATCHES, "seconds": cpu_s, "max_gaps": gaps}
+
+
+def audio_values(values: dict) -> dict:
+    import torch
+
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"audio_eval: {name} is not finite: {value}")
+    return {name: float(value) for name, value in values.items()}
+
+
+def profile_updates(metrics: dict, batches: list, compute: bool = False, tracked: tuple = ()) -> dict:
+    """torch.profiler over one update of every metric per batch (then one ``compute`` of
+    each with ``compute``), after a warm pass: device ms per batch, the busy share of
+    the wall clock, the kernels that take most of the device time and the share of it
+    in kernels whose names hold one of ``tracked``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for preds, target in batches:
+        for m in metrics.values():
+            m.update(preds, target)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for preds, target in batches:
+            for m in metrics.values():
+                m.update(preds, target)
+        if compute:
+            for m in metrics.values():
+                m.compute()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = us
+    total = sum(by_kernel.values())
+    share = sum(us for k, us in by_kernel.items() if any(t in k.lower() for t in tracked))
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"batches": len(batches), "compute": compute, "wall_ms": wall * 1e3, "device_ms": total / 1e3,
+            "device_ms_per_batch": total / 1e3 / len(batches),
+            "device_busy_share": total / 1e6 / wall if wall else None,
+            "tracked_share": share / total if tracked and total else None,
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3} for k, us in top]}
+
+
+def sdr_profile(preds, target) -> dict:
+    """Device ms per ``SignalDistortionRatio`` update over AUDIO_PROFILED updates, and the
+    share of it in the dense solve's kernels."""
+    from torchmetrics_tpu_torch.audio import SignalDistortionRatio
+
+    metric = SignalDistortionRatio(filter_length=512, device="cuda")
+    return profile_updates({"sdr": metric}, [(preds, target)] * AUDIO_PROFILED, tracked=SOLVE_KERNELS)
+
+
+def srmr_peak_memory(preds) -> dict:
+    """Peak device bytes of one SRMR update (both modes) over what was allocated before it."""
+    import torch
+
+    from torchmetrics_tpu_torch.audio import SpeechReverberationModulationEnergyRatio
+
+    peaks = {}
+    for fast in (False, True):
+        metric = SpeechReverberationModulationEnergyRatio(VOICEBANK_FS, fast=fast, device="cuda")
+        metric.update(preds)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        metric.update(preds)
+        torch.cuda.synchronize()
+        peaks["fast" if fast else "full"] = torch.cuda.max_memory_allocated() - base
+    return {"rows": int(preds.shape[0]), "samples": int(preds.shape[-1]), "peak_bytes": peaks}
+
+
+class Separated:
+    """Feeds a separation metric one WSJ0-2mix batch: PIT the estimates with half the rows'
+    speakers swapped, every other metric the estimates in source order."""
+
+    def __init__(self, metric, shuffled: bool):
+        self.metric, self.shuffled = metric, shuffled
+
+    def update(self, batch, sources) -> None:
+        self.metric.update(batch[0] if self.shuffled else batch[1], sources)
+
+    def compute(self):
+        return self.metric.compute()
+
+    def state_dict(self, persistent_only: bool = True) -> dict:
+        return self.metric.state_dict(persistent_only=persistent_only)
+
+
+def separated_metrics(device: str) -> dict:
+    return {name: Separated(m, name == "pit_si_sdr") for name, m in separation_metrics(device).items()}
+
+
+def audio_loop(metrics_fn, batches: list) -> dict:
+    """One loop on the card, each metric's updates timed alone, then its CPU twin."""
+    values, _, seconds, loop_s, snapshot = timed_loop(metrics_fn("cuda"), batches, snapshot_after=AUDIO_CPU_BATCHES)
+    steps = len(batches)
+    compute_s = seconds.pop("compute")
+    return {"updates": steps, "wall_s": loop_s, "update_s": seconds, "compute_s": compute_s,
+            "us_per_update": {k: v / steps * 1e6 for k, v in seconds.items()}, "values": audio_values(values),
+            "cpu_twin": audio_twin(metrics_fn, batches, snapshot)}
+
+
+def audio_eval_phase() -> dict:
+    """WSJ0-2mix separation and VoiceBank+DEMAND enhancement on the card, each loop held
+    against its CPU twin on its first batches; no K1-K5 launch."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.audio import (
+        permutation_invariant_training,
+        pit_permutate,
+        scale_invariant_signal_distortion_ratio,
+    )
+    from torchmetrics_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    separation = wsj0_2mix_batches()
+    torch.cuda.synchronize()
+    data_s = {"separation": time.perf_counter() - t0}
+    shuffled, ordered, sources, swapped = separation[0]
+    best, perm = permutation_invariant_training(shuffled, sources, scale_invariant_signal_distortion_ratio)
+    want = torch.where(swapped[:, None], torch.tensor([[1, 0]], device="cuda"), torch.tensor([[0, 1]], device="cuda"))
+    if not torch.equal(perm.long(), want) or not torch.equal(pit_permutate(shuffled, perm), ordered):
+        raise AssertionError("audio_eval: PIT did not find the swapped speakers of the first batch")
+    loops = {"separation": {
+        "source": "WSJ0-2mix tt (min), 8 kHz", "mixtures": WSJ0_MIXTURES, "samples": WSJ0_SAMPLES, "batch": WSJ0_BATCH,
+        **audio_loop(separated_metrics, [((s, o), t) for s, o, t, _ in separation]),
+        "pit_first_batch": {"swapped_rows": int(swapped.sum()), "mean_best": float(best.mean())},
+    }}
+    del separation, shuffled
+
+    t0 = time.perf_counter()
+    enhancement = voicebank_batches()
+    torch.cuda.synchronize()
+    data_s["enhancement"] = time.perf_counter() - t0
+    loops["enhancement"] = {
+        "source": "VoiceBank+DEMAND test, 16 kHz", "utterances": VOICEBANK_UTTERANCES, "batch": VOICEBANK_BATCH,
+        "samples": sum(int(b[0].numel()) for b in enhancement), **audio_loop(enhancement_metrics, enhancement),
+        "srmr_memory": srmr_peak_memory(max(enhancement, key=lambda b: b[0].shape[-1])[0]),
+    }
+    # last, after every timing: a process that has run the profiler is slower afterwards
+    loops["separation"]["sdr_profile"] = sdr_profile(ordered, sources)
+    loops["enhancement"]["profile"] = profile_updates(enhancement_metrics("cuda"), enhancement[:2])
+    values = loops["enhancement"]["values"]
+    if not (0.0 < values["stoi"] < 1.0 and 0.0 < values["estoi"] < 1.0 and values["srmr"] > 0):
+        raise AssertionError(f"audio_eval: enhancement scores out of range: {values}")
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"audio_eval: the audio path launched a kernel: {launches}")
+    return {"phase": "audio_eval", "loops": loops, "data_s": data_s, "launches": launches,
+            "cuts": {"separation": f"mixtures cropped to {WSJ0_SAMPLES // WSJ0_FS} s",
+                     "cpu_twin": f"the first {AUDIO_CPU_BATCHES} batches of each loop",
+                     "audio": "synthesized from seeds at the published counts and rates (no recording is in the repo)"}}
+
+
+# -------------------------------------------------------------- image quality
+
+# The WorldView-3 test sets of PanCollection (Deng et al., "Machine learning in
+# pansharpening: a benchmark", IEEE GRSM 2022), synthesized from seeds at their sizes:
+# 20 reduced-resolution images (an 8-band 256 x 256 ground truth beside the fused
+# output) and 20 full-resolution ones (fused output and panchromatic image 512 x 512,
+# the 8-band multispectral image 128 x 128, resolution ratio 4), reflectances in [0, 1].
+WV3_IMAGES = 20
+WV3_BANDS = 8
+WV3_RR_SIZE = 256
+WV3_FR_SIZE = 512
+WV3_RATIO = 4
+WV3_BATCH = 4
+WV3_CPU_IMAGES = 4
+WV3_PIXEL_SUMS = ("sum_sam",)  # states summed over every pixel: within PIXEL_SUM_RTOL
+WV3_DARKEST = 1e-3  # no pixel is black in every band, where the spectral angle is 0 / 0
+
+
+def smooth_bands(g, n: int, bands: int, size: int, device: str = "cuda"):
+    """Seeded multispectral scenes: a shared smooth field scaled per band, a smooth
+    band-specific part and fine texture (mostly shared by the bands), in [WV3_DARKEST, 1]."""
+    import torch
+    import torch.nn.functional as F
+
+    def field(channels: int, cells: int):
+        coarse = torch.rand(n, channels, cells, cells, generator=g, device=device)
+        return F.interpolate(coarse, size=(size, size), mode="bicubic", align_corners=False)
+
+    gains = 0.6 + 0.6 * torch.rand(1, bands, 1, 1, generator=g, device=device)
+    texture = torch.randn(n, 1, size, size, generator=g, device=device) * gains
+    texture = texture + 0.3 * torch.randn(n, bands, size, size, generator=g, device=device)
+    scene = 0.05 + 0.6 * field(1, size // 16) * gains + 0.2 * field(bands, size // 32) + 0.03 * texture
+    return scene.clamp_(WV3_DARKEST, 1)
+
+
+def worldview3_data(seed: int = 90) -> dict:
+    """The reduced-resolution pairs and the full-resolution quadruples, made on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gt = smooth_bands(g, WV3_IMAGES, WV3_BANDS, WV3_RR_SIZE)
+    fused = (gt + 0.01 * torch.randn(gt.shape, generator=g, device="cuda")).clamp_(WV3_DARKEST, 1)
+    hr = smooth_bands(g, WV3_IMAGES, WV3_BANDS, WV3_FR_SIZE)
+    preds = (hr + 0.01 * torch.randn(hr.shape, generator=g, device="cuda")).clamp_(WV3_DARKEST, 1)
+    pan = (hr.mean(dim=1, keepdim=True) + 0.01 * torch.randn(hr.shape[0], 1, *hr.shape[2:], generator=g,
+                                                              device="cuda")).clamp_(0, 1)
+    pan = pan.expand(-1, WV3_BANDS, -1, -1).contiguous()  # the panchromatic band, one copy a band
+    ms = F.avg_pool2d(hr, WV3_RATIO)
+    pan_lr = F.avg_pool2d(pan, WV3_RATIO)
+    return {"rr": (fused, gt), "fr": (preds, ms, pan, pan_lr)}
+
+
+class FullResolution:
+    """Feeds a no-reference metric one full-resolution quadruple: D-lambda the fused image
+    and the multispectral one, D-s and QNR the fused image and its target dict."""
+
+    def __init__(self, metric, target: str):
+        self.metric, self.target = metric, target
+
+    def update(self, batch, _) -> None:
+        preds, ms, pan, pan_lr = batch
+        if self.target == "ms":
+            self.metric.update(preds, ms)
+        else:
+            self.metric.update(preds, {"ms": ms, "pan": pan, **({"pan_lr": pan_lr} if self.target == "pan_lr" else {})})
+
+    def compute(self):
+        return self.metric.compute()
+
+    def state_dict(self, persistent_only: bool = True) -> dict:
+        return self.metric.state_dict(persistent_only=persistent_only)
+
+
+def reduced_resolution_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import image as ti
+
+    kw = {"device": device}
+    return {
+        "sam": ti.SpectralAngleMapper(**kw),
+        "ergas": ti.ErrorRelativeGlobalDimensionlessSynthesis(ratio=WV3_RATIO, **kw),
+        "scc": ti.SpatialCorrelationCoefficient(**kw),
+        "vif": ti.VisualInformationFidelity(**kw),
+        "rase": ti.RelativeAverageSpectralError(**kw),
+    }
+
+
+def full_resolution_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import image as ti
+
+    kw = {"device": device}
+    return {
+        "d_lambda": FullResolution(ti.SpectralDistortionIndex(**kw), "ms"),
+        "d_s": FullResolution(ti.SpatialDistortionIndex(**kw), "pan"),
+        "d_s_pan_lr": FullResolution(ti.SpatialDistortionIndex(**kw), "pan_lr"),
+        "qnr": FullResolution(ti.QualityWithNoReference(**kw), "pan"),
+    }
+
+
+def _image_quality_tolerance(where: str):
+    if where.rsplit(".", 1)[-1] in WV3_PIXEL_SUMS:
+        return FLOAT_ATOL, PIXEL_SUM_RTOL
+    return FLOAT_ATOL, IMAGE_RTOL
+
+
+def image_quality_loop(metrics_fn, batches: list) -> dict:
+    """One resolution's loop on the card (each update and each compute timed alone), then
+    its CPU twin on the first WV3_CPU_IMAGES images against the card's same prefix."""
+    import torch
+
+    values, _, seconds, loop_s, _ = timed_loop(metrics_fn("cuda"), batches)
+    compute_s = seconds.pop("compute")
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"image_quality_eval: {name} is not finite: {value}")
+    prefix = batches[:WV3_CPU_IMAGES // WV3_BATCH]
+    card_values, card_states, _, _, _ = timed_loop(metrics_fn("cuda"), prefix)
+    cpu_values, cpu_states, _, cpu_s, _ = timed_loop(metrics_fn("cpu"), [(to_cpu(p), None if t is None else to_cpu(t))
+                                                                          for p, t in prefix])
+    gap = max(compare(card_states, cpu_states, "state", _image_quality_tolerance),
+              compare(card_values, cpu_values, "value", _image_quality_tolerance))
+    steps = len(batches)
+    return {"updates": steps, "wall_s": loop_s, "update_s": seconds,
+            "us_per_update": {k: v / steps * 1e6 for k, v in seconds.items()}, "compute_s": compute_s,
+            "values": {name: float(v) for name, v in values.items()},
+            "cpu_twin": {"images": WV3_CPU_IMAGES, "seconds": cpu_s, "max_float_gap": gap,
+                         "values": {name: float(v) for name, v in cpu_values.items()}}}
+
+
+def image_quality_eval_phase() -> dict:
+    """WorldView-3 pansharpening quality on the card at reduced and full resolution, and
+    the image gradients of the fused images; each against its CPU twin on the first 4
+    images; no K1-K5 launch."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.image import image_gradients
+    from torchmetrics_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    data = worldview3_data()
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    splits = {key: [tuple(x[i:i + WV3_BATCH] for x in tensors) for i in range(0, WV3_IMAGES, WV3_BATCH)]
+              for key, tensors in data.items()}
+    loops = {"reduced_resolution": image_quality_loop(reduced_resolution_metrics, splits["rr"]),
+             "full_resolution": image_quality_loop(full_resolution_metrics, [(b, None) for b in splits["fr"]])}
+    fr = loops["full_resolution"]["values"]
+    if not all(0.0 <= fr[k] <= 1.0 for k in fr) or not 0.0 < loops["reduced_resolution"]["values"]["scc"] <= 1.0:
+        raise AssertionError(f"image_quality_eval: scores outside [0, 1]: {loops}")
+
+    grad_s = 0.0
+    for fused, _ in splits["rr"]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        image_gradients(fused)
+        torch.cuda.synchronize()
+        grad_s += time.perf_counter() - t1
+    fused = splits["rr"][0][0]
+    card_grads = image_gradients(fused)
+    for got, want in zip(card_grads, image_gradients(fused.cpu())):
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("image_quality_eval: the card's image gradients differ from the CPU's")
+    loops["gradients"] = {"updates": len(splits["rr"]), "us_per_update": grad_s / len(splits["rr"]) * 1e6,
+                          "cpu_twin": {"images": WV3_BATCH, "bitwise": True}}
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"image_quality_eval: the image-quality path launched a kernel: {launches}")
+    loops["reduced_resolution"]["profile"] = profile_updates(reduced_resolution_metrics("cuda"), splits["rr"][:1])
+    loops["full_resolution"]["profile"] = profile_updates(full_resolution_metrics("cuda"),
+                                                          [(b, None) for b in splits["fr"]], compute=True)
+    return {"phase": "image_quality_eval", "source": "PanCollection WorldView-3 test sets (reduced and full "
+            "resolution)", "images": WV3_IMAGES, "bands": WV3_BANDS, "batch": WV3_BATCH,
+            "sizes": {"rr": WV3_RR_SIZE, "fr": WV3_FR_SIZE, "ms": WV3_FR_SIZE // WV3_RATIO}, "data_s": data_s,
+            "loops": loops, "launches": launches,
+            "cuts": {"images": "synthesized from seeds at the test sets' counts and sizes",
+                     "cpu_twin": f"the first {WV3_CPU_IMAGES} images of each resolution"}}
+
+
 def profile_loop(metrics: dict, preds, target, batch: int, steps: int, track: str | None = None) -> dict:
     """Device time by kernel over ``steps`` warm steps of an eval loop, from torch.profiler.
     With ``track``, also the device ms per step and the traced calls of the kernels whose
@@ -6310,7 +6889,9 @@ def main() -> int:
                                       ("--nominal-eval", nominal_eval_phase),
                                       ("--segmentation-eval", segmentation_eval_phase),
                                       ("--pairwise-eval", pairwise_eval_phase),
-                                      ("--text-eval", text_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--text-eval", text_eval_phase),
+                                      ("--audio-eval", audio_eval_phase),
+                                      ("--image-quality-eval", image_quality_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -6409,7 +6990,8 @@ def main() -> int:
     phases.append(retrieval)
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
-                     segmentation_eval_phase, pairwise_eval_phase, text_eval_phase):
+                     segmentation_eval_phase, pairwise_eval_phase, text_eval_phase, audio_eval_phase,
+                     image_quality_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

@@ -2637,3 +2637,186 @@ def test_the_states_of_a_string_metric_live_on_the_card(card, name):
     for a, b in zip(flat(got), flat(want)):
         assert a.device.type == "cuda" and a.dtype == b.dtype
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------- audio and image quality
+
+SLICE_CONV_CASES = ("stoi_resample", "stoi", "scc", "vif", "d_s", "srmr")
+
+
+def _slice_signals(case: str):
+    g = torch.Generator().manual_seed(SLICE_CONV_CASES.index(case) + 40)
+    if case.startswith("stoi"):
+        clean = torch.randn(2, 16000, generator=g)
+        return clean + 0.5 * torch.randn(2, 16000, generator=g), clean
+    if case == "srmr":
+        return (torch.randn(2, 8000, generator=g),)
+    if case == "d_s":
+        return torch.rand(2, 3, 64, 64, generator=g), torch.rand(2, 3, 16, 16, generator=g), \
+            torch.rand(2, 3, 64, 64, generator=g)
+    target = torch.rand(2, 3, 64, 64, generator=g)
+    return (target + 0.1 * torch.randn(2, 3, 64, 64, generator=g)).clamp(0, 1), target
+
+
+def _slice_call(case: str):
+    from torchmetrics_tpu_torch.functional import audio as fa
+    from torchmetrics_tpu_torch.functional import image as fi
+    from torchmetrics_tpu_torch.functional.audio.stoi import resample_poly
+
+    return {
+        "stoi_resample": lambda x, _: resample_poly(x, 16000, 10000),
+        "stoi": lambda p, t: fa.short_time_objective_intelligibility(p, t, 16000),
+        "scc": fi.spatial_correlation_coefficient,
+        "vif": fi.visual_information_fidelity,
+        "d_s": fi.spatial_distortion_index,
+        "srmr": lambda x: fa.speech_reverberation_modulation_energy_ratio(x, 8000),
+    }[case]
+
+
+def _slice_kernel_names(cases: list) -> list:
+    """For each case, the device kernels of one call of the slice's function on the card
+    with cuDNN's TF32 flag on: the fullest of three traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = True
+    result = []
+    for case in cases:
+        args = [t.cuda() for t in _slice_signals(case)]
+        fn = _slice_call(case)
+        fn(*args)
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(*args)
+                torch.cuda.synchronize()
+            traces.append([e.key for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA and e.count])
+        result.append(max(traces, key=len))
+    assert torch.backends.cudnn.allow_tf32 is True
+    return result
+
+
+@pytest.fixture(scope="module")
+def slice_kernel_names() -> dict:
+    """``_slice_kernel_names`` of every case, traced in a new process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._slice_kernel_names(json.loads(sys.argv[3]))))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), json.dumps(SLICE_CONV_CASES)],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return dict(zip(SLICE_CONV_CASES, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("case", SLICE_CONV_CASES)
+def test_audio_and_image_quality_convolutions_reach_no_cudnn_kernel(card, slice_kernel_names, case):
+    """STOI's strided resample, SCC's and VIF's single-channel convolutions and D-s's
+    uniform filter run on PyTorch's native depthwise kernels with cuDNN's TF32 flag on;
+    SRMR convolves by FFT and its frame energies are a product. Each equals the CPU; no
+    flag is written."""
+    names = slice_kernel_names[case]
+
+    def cudnn_like(name: str) -> bool:
+        # cuBLAS's float32 products (STOI's band energies, D-s's resize, SRMR's frame
+        # energies) share the xmma/sm90_ prefixes; a convolution's kernels name it
+        low = name.lower()
+        plain_gemm = "gemm" in low and not any(m in low for m in ("fprop", "dgrad", "wgrad", "conv"))
+        return any(mark in name for mark in CUDNN_KERNEL_MARKS) and not plain_gemm
+
+    assert names and not [n for n in names if cudnn_like(n) or "tf32" in n.lower()], names
+    if case != "srmr":
+        assert any("conv_depthwise" in n for n in names), names
+    args = _slice_signals(case)
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        got = _slice_call(case)(*(t.to(card) for t in args))
+        assert cudnn.allow_tf32 is True
+    finally:
+        cudnn.allow_tf32 = before
+    want = _slice_call(case)(*args)
+    rtol = 1e-4 if case == "srmr" else 1e-5
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=1e-5)
+
+
+def _separation_batch(seed: int, rows: int = 4, samples: int = 16000):
+    g = torch.Generator().manual_seed(seed)
+    target = torch.randn(rows, 2, samples, generator=g).cumsum(-1) / 50
+    preds = target + 0.2 * target.flip(1) + 0.3 * torch.randn(rows, 2, samples, generator=g)
+    return preds, target
+
+
+def test_sdr_with_tf32_on_equals_tf32_off(card):
+    """SDR's Toeplitz solve with TF32 turned on process-wide (it then solves in float64 on
+    the card) equals the same solve with it off within SDR's 1e-2 dB, and the CPU; the
+    flag is never written."""
+    from torchmetrics_tpu_torch.functional.audio import signal_distortion_ratio
+
+    preds, target = _separation_batch(50)
+    off = signal_distortion_ratio(preds.to(card), target.to(card)).cpu()
+    matmul = torch.backends.cuda.matmul
+    before = matmul.fp32_precision
+    try:
+        matmul.fp32_precision = "tf32"
+        on = signal_distortion_ratio(preds.to(card), target.to(card)).cpu()
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = before
+    torch.testing.assert_close(on, off, rtol=0, atol=1e-2)
+    torch.testing.assert_close(off, signal_distortion_ratio(preds, target), rtol=0, atol=1e-2)
+
+
+def test_captured_stoi_and_si_sdr_updates_equal_their_eager_ones_bitwise(card):
+    from torchmetrics_tpu_torch import audio as ta
+
+    cases = {"si_sdr": lambda **kw: ta.ScaleInvariantSignalDistortionRatio(**kw),
+             "stoi": lambda **kw: ta.ShortTimeObjectiveIntelligibility(16000, **kw)}
+    for name, make in cases.items():
+        eager, captured = make(device=card), make(device=card, jit_update=True)
+        for seed in range(3):
+            preds, target = _separation_batch(60 + seed)
+            preds, target = preds[:, 0].to(card), target[:, 0].to(card)
+            eager.update(preds, target)
+            captured.update(preds, target)
+        for key in ("sum_score", "total"):
+            assert torch.equal(getattr(eager, key), getattr(captured, key)), (name, key)
+        info = captured._jitted_update.cache_info()
+        assert info["misses"] == 1 and info["replays"] >= 2, (name, info)
+
+
+def test_pit_under_capture_takes_the_exhaustive_search(card):
+    """Three speakers: the eager update assigns on the host (``linear_sum_assignment``), a
+    captured one cannot read back to the host and searches every permutation on the card;
+    both find the same best permutation's score."""
+    from torchmetrics_tpu_torch import audio as ta
+    from torchmetrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio
+
+    eager = ta.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device=card)
+    captured = ta.PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device=card,
+                                               jit_update=True)
+    g = torch.Generator().manual_seed(70)
+    for _ in range(3):
+        target = torch.randn(4, 3, 8000, generator=g)
+        preds = (target + 0.3 * torch.randn(4, 3, 8000, generator=g))[:, [2, 0, 1]]
+        eager.update(preds.to(card), target.to(card))
+        captured.update(preds.to(card), target.to(card))
+    assert torch.equal(eager.total, captured.total)
+    torch.testing.assert_close(captured.sum_score, eager.sum_score, rtol=1e-6, atol=1e-4)
+    assert captured._jitted_update.cache_info()["replays"] >= 2
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("norm", [False, True])
+def test_srmr_on_the_card_equals_the_cpu(card, norm, fast):
+    from torchmetrics_tpu_torch.functional.audio import speech_reverberation_modulation_energy_ratio as srmr
+
+    g = torch.Generator().manual_seed(80 + norm + 2 * fast)
+    t = torch.arange(24000) / 16000
+    x = torch.randn(3, 24000, generator=g) * (0.6 + 0.4 * torch.sin(2 * torch.pi * 4 * t))
+    got = srmr(x.to(card), 16000, norm=norm, fast=fast)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), srmr(x, 16000, norm=norm, fast=fast), rtol=1e-4, atol=0)

@@ -71,12 +71,16 @@ def _port_args(args):
     return tuple(a if _is_text(a) else torch.as_tensor(np.asarray(a)) for a in args)
 
 
+# keyword arguments that are JAX functions in ``CASES``, as the port takes them
+_PORT_KWARGS = {"PermutationInvariantTraining": {"metric_func": lambda p, t: -torch.mean((p - t) ** 2, dim=-1)}}
+
+
 def _pair(name):
     """The same metric in both packages, updated once with the same seeded inputs."""
     kwargs, maker = CASES[name]
     jm = getattr(jtm, name)(**kwargs)
     jm.update(*maker(np.random.RandomState(_SEED)))
-    pm = getattr(ptm, name)(**kwargs, device="cpu")
+    pm = getattr(ptm, name)(**{**kwargs, **_PORT_KWARGS.get(name, {})}, device="cpu")
     pm.update(*_port_args(maker(np.random.RandomState(_SEED))))
     return jm, pm
 

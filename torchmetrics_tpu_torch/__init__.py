@@ -26,13 +26,18 @@ input transformers, the tracker and feature sharing); the clustering scores (ext
 and intrinsic), the nominal association statistics, the segmentation scores and the
 pairwise distances (``functional.pairwise``); the text domain's string and token
 metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity; not
-yet BERTScore and InfoLM); and the fleet plane (``fleet``, ``obs.fleet``) with the live
+yet BERTScore and InfoLM); the audio domain less DNSMOS (SNR, SI-SNR, C-SI-SNR, SDR,
+SI-SDR, SA-SDR, PIT, native STOI/ESTOI and SRMR, the gated PESQ); the model-free rest of
+the image domain (SAM, ERGAS, SCC, VIF, RASE, D-lambda, D-s, QNR, image gradients); and
+the fleet plane (``fleet``, ``obs.fleet``) with the live
 introspection server (``obs.server``, ``python -m torchmetrics_tpu_torch.obs.serve``).
 """
 
 from torchmetrics_tpu_torch import functional, obs, robust
 from torchmetrics_tpu_torch.aggregation import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.aggregation import __all__ as _aggregation_all
+from torchmetrics_tpu_torch.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.audio import __all__ as _audio_all
 from torchmetrics_tpu_torch.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.clustering import *  # noqa: F401,F403
@@ -67,6 +72,6 @@ __version__ = "0.1.0.dev0"
 __all__ = [
     "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
     *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, *_clustering_all, *_nominal_all,
-    *_segmentation_all, *_text_all, "BootStrapper", "ClasswiseWrapper",
+    *_segmentation_all, *_text_all, *_audio_all, "BootStrapper", "ClasswiseWrapper",
     "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 ]

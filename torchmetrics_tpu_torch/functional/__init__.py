@@ -1,6 +1,7 @@
 """Functional metrics of the port."""
 
 from torchmetrics_tpu_torch.functional import (
+    audio,
     classification,
     clustering,
     image,
@@ -11,6 +12,8 @@ from torchmetrics_tpu_torch.functional import (
     segmentation,
     text,
 )
+from torchmetrics_tpu_torch.functional.audio import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.audio import __all__ as _audio_all
 from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
@@ -31,7 +34,7 @@ from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
-    "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation", "text",
-    *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all, *_regression_all,
-    *_retrieval_all, *_segmentation_all, *_text_all,
+    "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation",
+    "text", *_audio_all, *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all,
+    *_regression_all, *_retrieval_all, *_segmentation_all, *_text_all,
 ]

@@ -13,7 +13,7 @@ are built once per shape and device and cached; callers never write to them.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,6 +36,19 @@ def _as_jax_dtype(x) -> Tensor:
 def _dtype_name(dtype: torch.dtype) -> str:
     """``float32`` for ``torch.float32``: the name JAX prints in its messages."""
     return str(dtype).replace("torch.", "")
+
+
+_ON_DEVICE: Dict[tuple, Tensor] = {}  # (design, args, device) -> a host design's copy there
+
+
+def _on_device(design: Callable[..., np.ndarray], args: tuple, device: torch.device) -> Tensor:
+    """The numpy array ``design(*args)`` on ``device``, copied there once. The first call
+    for a device runs outside a CUDA graph capture (a capture's warm run comes first):
+    a capture cannot copy from the host."""
+    key = (design.__module__, design.__qualname__, args, torch.device(device))
+    if key not in _ON_DEVICE:
+        _ON_DEVICE[key] = torch.from_numpy(design(*args)).to(device)
+    return _ON_DEVICE[key]
 
 
 def reduce(x: Tensor, reduction: Union[str, None]) -> Tensor:
@@ -82,7 +95,7 @@ def _gaussian_kernel_3d(
     return kernel.expand(channel, 1, *kernel_size)
 
 
-def _depthwise_single_channel(conv, x: Tensor, kernel: Tensor) -> Tensor:
+def _depthwise_single_channel(conv, x: Tensor, kernel: Tensor, stride=1) -> Tensor:
     """``conv(x, kernel)`` of a single-channel ``x`` (``[N, 1, ...]``) as one image whose
     channels are its N planes (a plane alone doubled), each with its own copy of the
     window: a depthwise convolution with the same sums."""
@@ -91,11 +104,11 @@ def _depthwise_single_channel(conv, x: Tensor, kernel: Tensor) -> Tensor:
     if planes == 1:
         folded = torch.cat((folded, folded), dim=1)
     width = folded.shape[1]
-    out = conv(folded, kernel.expand(width, *kernel.shape[1:]).contiguous(), groups=width)
+    out = conv(folded, kernel.expand(width, *kernel.shape[1:]).contiguous(), groups=width, stride=stride)
     return out[0, :planes].unsqueeze(1)
 
 
-def _grouped_conv(conv, x: Tensor, kernel: Tensor, groups: int) -> Tensor:
+def _grouped_conv(conv, x: Tensor, kernel: Tensor, groups: int, stride=1) -> Tensor:
     """A VALID grouped convolution with one input channel a group, in full float32 on the
     card without touching a process-wide flag.
 
@@ -107,15 +120,15 @@ def _grouped_conv(conv, x: Tensor, kernel: Tensor, groups: int) -> Tensor:
     convolution as it is."""
     kernel = kernel.to(x.dtype).contiguous()
     if not x.is_cuda:
-        return conv(x, kernel, groups=groups)
+        return conv(x, kernel, groups=groups, stride=stride)
     if groups == 1 and x.shape[1] == 1:
-        return _depthwise_single_channel(conv, x, kernel)
-    return conv(x.contiguous(), kernel, groups=groups)
+        return _depthwise_single_channel(conv, x, kernel, stride)
+    return conv(x.contiguous(), kernel, groups=groups, stride=stride)
 
 
-def _conv2d(x: Tensor, kernel: Tensor, groups: int = 1) -> Tensor:
+def _conv2d(x: Tensor, kernel: Tensor, groups: int = 1, stride=1) -> Tensor:
     """VALID 2D convolution, NCHW/OIHW, in full float32 (``_grouped_conv``)."""
-    return _grouped_conv(F.conv2d, x, kernel, groups)
+    return _grouped_conv(F.conv2d, x, kernel, groups, stride)
 
 
 def _conv3d(x: Tensor, kernel: Tensor, groups: int = 1) -> Tensor:

@@ -1,8 +1,7 @@
-"""Image-quality metric modules: UQI, total variation and sliding-window RMSE.
+"""Analytic image-quality metric modules: UQI, SAM, ERGAS, SCC, VIF, TV, RMSE-SW, RASE.
 
-Counterpart of ``UniversalImageQualityIndex``, ``TotalVariation`` and
-``RootMeanSquaredErrorUsingSlidingWindow`` in ``torchmetrics_tpu/image/quality.py``,
-with the same states. The module's other classes are not ported yet.
+Counterpart of ``torchmetrics_tpu/image/quality.py``, with the same states (names,
+dtypes and reductions) in every class.
 """
 
 from __future__ import annotations
@@ -12,9 +11,15 @@ from typing import Any, Optional, Sequence
 import torch
 
 from torchmetrics_tpu_torch.core.metric import Metric
+from torchmetrics_tpu_torch.functional.image.ergas import _ergas_compute, _ergas_update
+from torchmetrics_tpu_torch.functional.image.rase import relative_average_spectral_error
 from torchmetrics_tpu_torch.functional.image.rmse_sw import _rmse_sw_compute, _rmse_sw_update
+from torchmetrics_tpu_torch.functional.image.sam import _sam_compute, _sam_update
+from torchmetrics_tpu_torch.functional.image.scc import _LAPLACIAN, _scc_map, _scc_update
 from torchmetrics_tpu_torch.functional.image.tv import _total_variation_compute, _total_variation_update
 from torchmetrics_tpu_torch.functional.image.uqi import _uqi_compute, _uqi_update
+from torchmetrics_tpu_torch.functional.image.utils import _as_jax_dtype
+from torchmetrics_tpu_torch.functional.image.vif import _vif_per_image_channel
 from torchmetrics_tpu_torch.utils.data import dim_zero_cat
 
 Tensor = torch.Tensor
@@ -78,6 +83,176 @@ class UniversalImageQualityIndex(Metric):
             target = dim_zero_cat(self.target)
             return _uqi_compute(preds, target, self.kernel_size, self.sigma, self.reduction)
         return self.sum_uqi / self.numel if self.reduction == "elementwise_mean" else self.sum_uqi
+
+
+class SpectralAngleMapper(Metric):
+    r"""Spectral angle mapper.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.image import SpectralAngleMapper
+        >>> g = torch.Generator().manual_seed(42)
+        >>> preds, target = torch.rand(16, 3, 16, 16, generator=g), torch.rand(16, 3, 16, 16, generator=g)
+        >>> sam = SpectralAngleMapper(device="cpu")
+        >>> float(sam(preds, target)) > 0
+        True
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    def __init__(self, reduction: Optional[str] = "elementwise_mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if reduction == "none" or reduction is None:
+            self.add_state("preds", [], dist_reduce_fx="cat")
+            self.add_state("target", [], dist_reduce_fx="cat")
+        else:
+            self.add_state("sum_sam", torch.zeros(()), dist_reduce_fx="sum")
+            self.add_state("numel", torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
+        self.reduction = reduction
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate the spectral-angle sum (or the raw inputs for reduction='none')."""
+        preds, target = _sam_update(preds, target)
+        if self.reduction == "none" or self.reduction is None:
+            self.preds.append(preds)
+            self.target.append(target)
+        else:
+            sam_score = _sam_compute(preds, target, reduction="sum")
+            self.sum_sam = self.sum_sam + sam_score
+            p_shape = preds.shape
+            self.numel = self.numel + p_shape[0] * p_shape[2] * p_shape[3]
+
+    def compute(self) -> Tensor:
+        """SAM over accumulated state."""
+        if self.reduction == "none" or self.reduction is None:
+            preds = dim_zero_cat(self.preds)
+            target = dim_zero_cat(self.target)
+            return _sam_compute(preds, target, self.reduction)
+        return self.sum_sam / self.numel if self.reduction == "elementwise_mean" else self.sum_sam
+
+
+class ErrorRelativeGlobalDimensionlessSynthesis(Metric):
+    r"""ERGAS pan-sharpening quality.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.image import ErrorRelativeGlobalDimensionlessSynthesis
+        >>> preds = torch.rand(16, 1, 16, 16, generator=torch.Generator().manual_seed(42))
+        >>> target = preds * 0.75
+        >>> ergas = ErrorRelativeGlobalDimensionlessSynthesis(device="cpu")
+        >>> float(ergas(preds, target)) > 9
+        True
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    def __init__(self, ratio: float = 4, reduction: Optional[str] = "elementwise_mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.add_state("preds", [], dist_reduce_fx="cat")
+        self.add_state("target", [], dist_reduce_fx="cat")
+        self.ratio = ratio
+        self.reduction = reduction
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Store the batch (ERGAS needs whole-epoch band statistics)."""
+        preds, target = _ergas_update(preds, target)
+        self.preds.append(preds)
+        self.target.append(target)
+
+    def compute(self) -> Tensor:
+        """ERGAS over all accumulated images."""
+        preds = dim_zero_cat(self.preds)
+        target = dim_zero_cat(self.target)
+        return _ergas_compute(preds, target, self.ratio, self.reduction)
+
+
+class SpatialCorrelationCoefficient(Metric):
+    r"""Spatial correlation coefficient.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.image import SpatialCorrelationCoefficient
+        >>> x = torch.rand(2, 3, 16, 16, generator=torch.Generator().manual_seed(42))
+        >>> scc = SpatialCorrelationCoefficient(device="cpu")
+        >>> round(float(scc(x, x)), 3)
+        1.0
+    """
+
+    is_differentiable = True
+    higher_is_better = True
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+    plot_upper_bound: float = 1.0
+
+    scc_score: Tensor
+    total: Tensor
+
+    def __init__(self, high_pass_filter: Optional[Tensor] = None, window_size: int = 8, **kwargs: Any) -> None:
+        # the module's keyword is `high_pass_filter`, the functional's `hp_filter`, as in JAX
+        super().__init__(**kwargs)
+        self.hp_filter = _LAPLACIAN if high_pass_filter is None else high_pass_filter
+        self.ws = window_size
+        self.add_state("scc_score", torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate per-image mean SCC."""
+        preds, target, hp_filter = _scc_update(preds, target, self.hp_filter, self.ws)
+        scc_map = _scc_map(preds, target, hp_filter, self.ws)
+        self.scc_score = self.scc_score + torch.sum(torch.mean(scc_map, dim=(1, 2, 3)))
+        self.total = self.total + preds.shape[0]
+
+    def compute(self) -> Tensor:
+        """Mean SCC over all images."""
+        return self.scc_score / self.total
+
+
+class VisualInformationFidelity(Metric):
+    r"""Pixel-based visual information fidelity.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.image import VisualInformationFidelity
+        >>> g = torch.Generator().manual_seed(42)
+        >>> preds, target = torch.rand(2, 1, 41, 41, generator=g), torch.rand(2, 1, 41, 41, generator=g)
+        >>> vif = VisualInformationFidelity(device="cpu")
+        >>> float(vif(preds, target)) > 0
+        True
+    """
+
+    is_differentiable = True
+    higher_is_better = True
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    vif_score: Tensor
+    total: Tensor
+
+    def __init__(self, sigma_n_sq: float = 2.0, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(sigma_n_sq, (float, int)) or sigma_n_sq < 0:
+            raise ValueError(f"Argument `sigma_n_sq` is expected to be a positive float or int, but got {sigma_n_sq}")
+        self.add_state("vif_score", torch.zeros(()), dist_reduce_fx="sum")
+        self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+        self.sigma_n_sq = sigma_n_sq
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Accumulate per-image channel-mean VIF."""
+        preds = _as_jax_dtype(preds)
+        target = _as_jax_dtype(target).to(preds.dtype)
+        vif_val = torch.mean(_vif_per_image_channel(preds, target, self.sigma_n_sq), dim=1)
+        self.vif_score = self.vif_score + torch.sum(vif_val)
+        self.total = self.total + preds.shape[0]
+
+    def compute(self) -> Tensor:
+        """Mean VIF over all images."""
+        return self.vif_score / self.total
 
 
 class TotalVariation(Metric):
@@ -165,3 +340,41 @@ class RootMeanSquaredErrorUsingSlidingWindow(Metric):
         rmse_map = torch.sum(dim_zero_cat(self.rmse_map_chunks), dim=0)
         rmse, _ = _rmse_sw_compute(self.rmse_val_sum, rmse_map, self.total_images)
         return rmse
+
+
+class RelativeAverageSpectralError(Metric):
+    r"""Relative average spectral error.
+
+    Example:
+        >>> import torch
+        >>> from torchmetrics_tpu_torch.image import RelativeAverageSpectralError
+        >>> g = torch.Generator().manual_seed(22)
+        >>> preds, target = torch.rand(4, 3, 16, 16, generator=g), torch.rand(4, 3, 16, 16, generator=g)
+        >>> rase = RelativeAverageSpectralError(device="cpu")
+        >>> float(rase(preds, target)) > 0
+        True
+    """
+
+    higher_is_better = False
+    is_differentiable = True
+    full_state_update = False
+    plot_lower_bound: float = 0.0
+
+    def __init__(self, window_size: int = 8, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(window_size, int) or window_size < 1:
+            raise ValueError(f"Argument `window_size` is expected to be a positive integer, but got {window_size}")
+        self.window_size = window_size
+        self.add_state("preds", [], dist_reduce_fx="cat")
+        self.add_state("target", [], dist_reduce_fx="cat")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Store the batch (RASE needs whole-epoch target means)."""
+        self.preds.append(_as_jax_dtype(preds))
+        self.target.append(_as_jax_dtype(target))
+
+    def compute(self) -> Tensor:
+        """RASE over all accumulated images."""
+        preds = dim_zero_cat(self.preds)
+        target = dim_zero_cat(self.target)
+        return relative_average_spectral_error(preds, target, self.window_size)
