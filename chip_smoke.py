@@ -207,9 +207,11 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    LibriSpeech test-clean's 2,620 utterances and 52,576 words at ~5% word errors,
    batches of 64: WER, CER, MER, WIL, WIP and ``EditDistance`` (``mean`` and ``none``).
    MT: WMT14 newstest2014 en-de's 3,003 segments of ~21 words, one reference each, ~40%
-   edits, batches of 128: BLEU, SacreBLEU (13a), chrF, chrF++, TER and EED.
+   edits, batches of 128: BLEU, SacreBLEU (13a), chrF, chrF++, TER and EED, on the first
+   6 batches (768 segments; a cut of script time, which pays for ``detection_eval``).
    Summarization: CNN/DailyMail 3.0.0 test's 11,490 pairs, references of ~55 words in 3-4
-   sentences, batches of 256: ROUGE-1/2/L/Lsum with the regex sentence splitter
+   sentences, batches of 256, on the first 8 batches (2,048 pairs; the same cut):
+   ROUGE-1/2/L/Lsum with the regex sentence splitter
    installed (punkt is never downloaded). QA: SQuAD v1.1 dev's 10,570 questions with 1-3
    gold answers of 1-10 words, ~80% exact, batches of 512. LM: ``Perplexity`` at
    Llama-2's vocabulary of 32,000 over 40 windows of 4 x 2,048 float32 logits drawn on the
@@ -241,7 +243,17 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    states and values after its first 2 batches equal the same batches with
    ``device="cpu"`` (``total`` exactly; per sample SNR-family scores within 1e-4 dB, SDR
    1e-2 dB, STOI 1e-5, SRMR 1e-4 relative; ``sum_score`` within that times ``total``),
-   every value is finite and in range, and no K1-K5 kernel was launched.
+   every value is finite and in range, and no K1-K5 kernel was launched. Then DNSMOS:
+   the DNS Challenge (Interspeech 2020) synthetic no-reverb test set, 150 noisy clips of
+   10 s at 16 kHz, batches of 8, ``personalized`` False and True, on graphs fabricated in
+   the ONNX wire format with seeded weights (no DNS checkpoint is in the repo): a
+   P.808-shaped CNN over the 900 x 120 log-mel input and P.835 ``sig_bak_ovr``-shaped
+   graphs over the raw 144,160-sample segment, in a model directory under
+   ``build/audio`` (two as raw ``.onnx`` drops, converted on first use, one converted
+   already; removed at the end). It prints µs per update (the first, which converts and
+   loads, apart) and the executor's device ms by op, and fails unless the card's per-clip
+   scores and the class's states on the first 2 batches equal the CPU's within 1e-4, the
+   mean is a MOS in [1, 5] and the raw drop was converted.
 22. ``image_quality_eval``: PanCollection's WorldView-3 test sets (Deng et al., IEEE GRSM
    2022), synthesized from seeds at their sizes: 20 reduced-resolution images (an 8-band
    256 x 256 ground truth beside the fused output; SAM, ERGAS at ratio 4, SCC, VIF, RASE)
@@ -253,16 +265,33 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    with ``device="cpu"`` (1e-5 plus 1e-6 relative; SAM's pixel sum 1e-5 relative; the
    gradients bitwise), every value is finite and in range, and no K1-K5 kernel was
    launched.
-23. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+23. ``detection_eval``: three published detection evaluations, synthesized from seeds at
+   their sizes (no dataset is in the repo). COCO val2017 bbox: 5,000 images of 480 x 640,
+   36,781 boxes of 80 categories (a heavy head, COCO's mix of small, medium and large
+   boxes), 100 scored detections an image, batches of 16: ``MeanAveragePrecision`` with
+   class metrics, micro-averaged and with the extended summary, and the four IoU
+   classes. segm: the first 500 images as ellipse masks in the buffered, bit-packed
+   layout (``mask_shape=(480, 640)``). COCO panoptic val2017: 5,000 images of 480 x 640,
+   80 thing and 53 stuff categories, batches of 8: ``PanopticQuality`` and
+   ``ModifiedPanopticQuality``. It prints µs per update of each metric, ``compute``
+   seconds first and warm, the peak memory of the computes, a profile of a warm
+   ``compute`` (busy share, the matcher's and the accumulation's device ms), the values
+   and one profiled panoptic update. It fails unless each panoptic update launched the
+   bincount kernel exactly once a metric and nothing else launched a kernel, the values
+   are in range, and the card equals its CPU twin on the first 500 (bbox), 16 (segm) and
+   16 (panoptic) images: the mean AP surfaces, ``ious``, classes and every count
+   exactly, summary values and IoUs within 1e-6, panoptic ``iou_sum`` within 1e-6
+   relative.
+24. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    4 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-24. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+25. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-25. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+26. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -283,7 +312,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-26. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+27. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -309,7 +338,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-27. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+28. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -399,7 +428,8 @@ builds the kernels and prints only the ``chaos_eval`` phase's lines (its checks
 included).
 
     python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
-        --segmentation-eval --pairwise-eval --text-eval --audio-eval --image-quality-eval
+        --segmentation-eval --pairwise-eval --text-eval --audio-eval --image-quality-eval \
+        --detection-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -417,6 +447,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4161,6 +4192,9 @@ LM_PROFILED = 3
 # the CPU twin of each string loop takes its first batches (the string work is the same
 # host code on both sides), perplexity's its first window
 TEXT_CPU_BATCHES = 2
+# a cut of script time that pays for ``detection_eval``: the MT and summarization loops
+# run on the first batches of their corpora (drawn whole, so those batches are the same)
+TEXT_LOOP_BATCHES = {"mt": 6, "summarization": 8}  # 768 of 3,003 segments, 2,048 of 11,490 pairs
 TEXT_ATOL = 1e-6
 PERPLEXITY_RTOL = 1e-5
 # list states of per-sentence scores, held within TEXT_ATOL; every other state exactly
@@ -4521,7 +4555,8 @@ def text_eval_phase() -> dict:
             data_s[loop] = time.perf_counter() - t0
             if sum(len(p) for p, _ in batches) != size:
                 raise AssertionError(f"text_eval: {loop} has {sum(len(p) for p, _ in batches)} items, not {size}")
-            loops[loop] = {"source": source, **text_string_loop(loop, batches)}
+            batches = batches[:TEXT_LOOP_BATCHES.get(loop, len(batches))]
+            loops[loop] = {"source": source, "corpus_items": size, **text_string_loop(loop, batches)}
             if loop == "asr":
                 loops[loop]["levenshtein"] = levenshtein_times(batches)
     finally:
@@ -4532,6 +4567,7 @@ def text_eval_phase() -> dict:
         raise AssertionError(f"text_eval: the text path launched a kernel: {launches}")
     return {"phase": "text_eval", "loops": loops, "data_s": data_s, "launches": launches,
             "cuts": {"corpora": "synthesized from seeds at the published counts and lengths (no dataset is in the repo)",
+                     "loops": {loop: f"the first {n} batches" for loop, n in TEXT_LOOP_BATCHES.items()},
                      "cpu_twin": f"the first {TEXT_CPU_BATCHES} batches of each string loop, the first window of "
                                  "perplexity"}}
 
@@ -4570,6 +4606,22 @@ AUDIO_PROFILED = 3
 # kernel in its trace belongs to the solve
 SOLVE_KERNELS = ("getrf", "getf2", "getrs", "trsm", "laswp", "pivinfo", "displace_pointers", "gemm", "ipiv",
                  "magma", "cusolver")
+# The DNS Challenge (Interspeech 2020) synthetic no-reverb test set: 150 noisy clips of
+# 10 s at 16 kHz (clean speech plus noise at 0-25 dB SNR), batches of 8, scored by DNSMOS
+# with ``personalized`` False and True. The repo carries no DNS Challenge checkpoint, so
+# the graphs are fabricated in the ONNX wire format with seeded weights
+# (``dnsmos_graphs``): a P.808-shaped CNN (3 x 3 convolutions of 16 to 128 channels over
+# the 900 x 120 log-mel input, max pooling, a dense head) and P.835 sig_bak_ovr-shaped
+# graphs over the raw 144,160-sample segment (a strided 400-tap filterbank convolution,
+# batch norm, pooling, a dense head of three outputs in [1, 5]).
+DNS_CLIPS = 150
+DNS_FS = 16_000
+DNS_SECONDS = 10
+DNS_BATCH = 8
+DNS_CPU_BATCHES = 2
+DNSMOS_ATOL = 1e-4  # per clip, each of the four scores
+DNSMOS_P808_WIDTHS = (16, 32, 64, 128)
+DNSMOS_SBO_WIDTHS = (32, 64, 64)
 
 
 def speech_like(g, rows: int, samples: int, fs: int, device: str = "cuda"):
@@ -4852,6 +4904,248 @@ def audio_loop(metrics_fn, batches: list) -> dict:
             "cpu_twin": audio_twin(metrics_fn, batches, snapshot)}
 
 
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    v = v if v >= 0 else v + (1 << 64)
+    while True:
+        byte, v = v & 0x7F, v >> 7
+        out.append(byte | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(number: int, payload) -> bytes:
+    """A protobuf field: a varint (int) or a length-delimited payload (bytes)."""
+    if isinstance(payload, int):
+        return _varint(number << 3) + _varint(payload)
+    return _varint(number << 3 | 2) + _varint(len(payload)) + payload
+
+
+def onnx_tensor(name: str, arr) -> bytes:
+    """TensorProto of a float32, int32 or int64 array (dims, data type, name, raw data)."""
+    import numpy as np
+
+    arr = np.asarray(arr)
+    code = {np.dtype(np.float32): 1, np.dtype(np.int32): 6, np.dtype(np.int64): 7}[arr.dtype]
+    return b"".join(_field(1, int(d)) for d in arr.shape) + _field(2, code) + _field(8, name.encode()) + \
+        _field(9, arr.astype(arr.dtype.newbyteorder("<")).tobytes())
+
+
+def onnx_node(op: str, inputs: list, outputs: list, **attrs) -> bytes:
+    """NodeProto with int, float, string, int-list and tensor attributes."""
+    import struct
+
+    import numpy as np
+
+    msg = b"".join(_field(1, i.encode()) for i in inputs) + b"".join(_field(2, o.encode()) for o in outputs)
+    msg += _field(3, f"{op}_{outputs[0]}".encode()) + _field(4, op.encode())
+    for key, value in attrs.items():
+        attr = _field(1, key.encode())
+        if isinstance(value, float):
+            attr += _varint(2 << 3 | 5) + struct.pack("<f", value) + _field(20, 1)
+        elif isinstance(value, int):
+            attr += _field(3, value) + _field(20, 2)
+        elif isinstance(value, str):
+            attr += _field(4, value.encode()) + _field(20, 3)
+        elif isinstance(value, np.ndarray):
+            attr += _field(5, onnx_tensor("", value)) + _field(20, 4)
+        else:
+            attr += b"".join(_field(8, int(v)) for v in value) + _field(20, 7)
+        msg += _field(5, attr)
+    return msg
+
+
+def onnx_model(nodes: list, initializers: dict, inputs: list, outputs: list) -> bytes:
+    """ModelProto bytes (ONNX's wire format) of a graph: nodes, initializers, the graph's
+    input and output names."""
+    graph = b"".join(_field(1, n) for n in nodes) + _field(2, b"g")
+    graph += b"".join(_field(5, onnx_tensor(name, arr)) for name, arr in initializers.items())
+    graph += b"".join(_field(11, _field(1, i.encode())) for i in inputs)
+    graph += b"".join(_field(12, _field(1, o.encode())) for o in outputs)
+    return _field(1, 8) + _field(7, graph)
+
+
+def dnsmos_graphs(seed: int = 91, p808_widths: tuple = DNSMOS_P808_WIDTHS,
+                  sbo_widths: tuple = DNSMOS_SBO_WIDTHS) -> dict:
+    """ONNX ModelProto bytes with seeded weights (``onnx_model`` writes the wire format):
+    ``model_v8``, a P.808-shaped CNN over the ``[B, 900, 120]`` log-mel input
+    (a keras-style Shape/Gather/Concat/Reshape to NCHW, 3 x 3 convolutions with max
+    pooling, a global max pool and two dense layers, one MOS out), and ``sig_bak_ovr`` and
+    ``p_sig_bak_ovr``, P.835-shaped graphs over the raw 144,160-sample segment (three
+    raw (sig, bak, ovr) scores in [1, 5])."""
+    import numpy as np
+
+    _model, _node = onnx_model, onnx_node
+    r = np.random.RandomState(seed)
+
+    def he(*shape):
+        fan_in = int(np.prod(shape[1:]))
+        return (r.randn(*shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+    init = {"idx0": np.asarray(0, np.int64), "tail": np.asarray([1, 900, 120], np.int64)}
+    nodes = [
+        _node("Shape", ["input_1"], ["sh"]),
+        _node("Gather", ["sh", "idx0"], ["n"], axis=0),
+        _node("Unsqueeze", ["n"], ["n1"], axes=[0]),
+        _node("Concat", ["n1", "tail"], ["target"], axis=0),
+        _node("Reshape", ["input_1", "target"], ["x0"]),
+    ]
+    x, cin = "x0", 1
+    for i, cout in enumerate(p808_widths):
+        init[f"w{i}"], init[f"b{i}"] = he(cout, cin, 3, 3), np.full(cout, 0.01, np.float32)
+        nodes += [_node("Conv", [x, f"w{i}", f"b{i}"], [f"c{i}"], pads=[1, 1, 1, 1]),
+                  _node("Relu", [f"c{i}"], [f"r{i}"])]
+        x, cin = f"r{i}", cout
+        if i + 1 < len(p808_widths):
+            nodes.append(_node("MaxPool", [x], [f"p{i}"], kernel_shape=[2, 2], strides=[2, 2]))
+            x = f"p{i}"
+    init["wd1"], init["bd1"] = he(64, cin).T.copy() * 0.5, np.zeros(64, np.float32)
+    init["wd2"], init["bd2"] = he(64, 1) * 0.1, np.asarray([3.0], np.float32)
+    nodes += [_node("GlobalMaxPool", [x], ["gmp"]), _node("Flatten", ["gmp"], ["fl"], axis=1),
+              _node("Gemm", ["fl", "wd1", "bd1"], ["d1"]), _node("Relu", ["d1"], ["rd1"]),
+              _node("Dropout", ["rd1"], ["dr"]), _node("Gemm", ["dr", "wd2", "bd2"], ["mos"])]
+    graphs = {"model_v8": _model(nodes, init, ["input_1"], ["mos"])}
+
+    for key in ("sig_bak_ovr", "p_sig_bak_ovr"):
+        c0, c1, c2 = sbo_widths
+        init = {
+            "shape": np.asarray([0, 1, -1], np.int64),
+            "w0": he(c0, 1, 400) * 0.2, "b0": np.zeros(c0, np.float32),
+            "w1": he(c1, c0, 3), "b1": np.zeros(c1, np.float32),
+            "s": (1.0 + 0.1 * r.randn(c1)).astype(np.float32), "bb": (0.1 * r.randn(c1)).astype(np.float32),
+            "m": (0.1 * r.randn(c1)).astype(np.float32), "v": (1.0 + r.rand(c1)).astype(np.float32),
+            "w2": he(c2, c1, 3), "b2": np.zeros(c2, np.float32),
+            "wd": he(c2, 3) * 0.5, "bd": np.asarray([0.3, 0.5, 0.1], np.float32),
+            "four": np.asarray(4.0, np.float32), "one": np.asarray(1.0, np.float32),
+        }
+        nodes = [
+            _node("Reshape", ["input_1", "shape"], ["x"]),
+            _node("Conv", ["x", "w0", "b0"], ["c0"], strides=[160]),
+            _node("Relu", ["c0"], ["r0"]),
+            _node("Conv", ["r0", "w1", "b1"], ["c1"], pads=[1, 1]),
+            _node("BatchNormalization", ["c1", "s", "bb", "m", "v"], ["bn"], epsilon=1e-3),
+            _node("Relu", ["bn"], ["r1"]),
+            _node("MaxPool", ["r1"], ["p1"], kernel_shape=[2], strides=[2]),
+            _node("Conv", ["p1", "w2", "b2"], ["c2"], pads=[1, 1]),
+            _node("Tanh", ["c2"], ["t2"]),
+            _node("GlobalAveragePool", ["t2"], ["gap"]),
+            _node("Flatten", ["gap"], ["fl"], axis=1),
+            _node("Gemm", ["fl", "wd", "bd"], ["d"]),
+            _node("Sigmoid", ["d"], ["sg"]),
+            _node("Mul", ["sg", "four"], ["sc"]),
+            _node("Add", ["sc", "one"], ["out"]),
+        ]
+        graphs[key] = _model(nodes, init, ["input_1"], ["out"])
+    return graphs
+
+
+def dnsmos_dir(root: str, graphs: dict) -> str:
+    """A DNSMOS model directory: ``model_v8`` and the personalized head as raw ``.onnx``
+    drops in the reference's layout (converted on first use), ``sig_bak_ovr`` already
+    converted (by the port's converter, from a drop outside the directory)."""
+    from torchmetrics_tpu_torch.convert.onnx_torch import convert_onnx_flax
+
+    os.makedirs(os.path.join(root, "DNSMOS"), exist_ok=True)
+    os.makedirs(os.path.join(root, "pDNSMOS"), exist_ok=True)
+    with open(os.path.join(root, "DNSMOS", "model_v8.onnx"), "wb") as fh:
+        fh.write(graphs["model_v8"])
+    with open(os.path.join(root, "pDNSMOS", "sig_bak_ovr.onnx"), "wb") as fh:
+        fh.write(graphs["p_sig_bak_ovr"])
+    staged = os.path.join(os.path.dirname(root), "sig_bak_ovr.onnx")
+    with open(staged, "wb") as fh:
+        fh.write(graphs["sig_bak_ovr"])
+    convert_onnx_flax(staged, os.path.join(root, "sig_bak_ovr"))
+    os.remove(staged)
+    return root
+
+
+def dns_challenge_batches(seed: int = 92, device: str = "cuda") -> list:
+    """The noisy clips of each batch of the DNS Challenge test set, made on the card."""
+    import torch
+
+    samples = DNS_SECONDS * DNS_FS
+    batches = []
+    for index, start in enumerate(range(0, DNS_CLIPS, DNS_BATCH)):
+        rows = min(DNS_BATCH, DNS_CLIPS - start)
+        g = torch.Generator(device=device).manual_seed(seed * 100_000 + index)
+        clean = speech_like(g, rows, samples, DNS_FS, device=device)
+        noise = torch.randn(rows, samples, generator=g, device=device).cumsum(-1)
+        noise = noise - noise.mean(dim=-1, keepdim=True)
+        noise = noise / noise.pow(2).mean(dim=-1, keepdim=True).sqrt()
+        snr_db = 25 * torch.rand(rows, 1, generator=g, device=device)
+        batches.append(0.05 * (clean + noise * 10 ** (-snr_db / 20)))
+    return batches
+
+
+def dnsmos_loop(root: str) -> dict:
+    """DNSMOS over the DNS Challenge clips on the card, ``personalized`` False and True:
+    µs per update (the first, which converts and loads the graphs, apart), the executor's
+    device ms by op over one batch, and the CPU twin on the first batches: per-clip scores
+    within DNSMOS_ATOL and the class's states."""
+    import torch
+
+    from torchmetrics_tpu_torch.audio import DeepNoiseSuppressionMeanOpinionScore
+    from torchmetrics_tpu_torch.functional.audio import dnsmos as fdnsmos
+
+    graphs = dnsmos_graphs()
+    model_dir = dnsmos_dir(os.path.join(root, "dnsmos"), graphs)
+    previous = os.environ.get("TORCHMETRICS_TPU_DNSMOS_DIR")
+    os.environ["TORCHMETRICS_TPU_DNSMOS_DIR"] = model_dir
+    fdnsmos._load_model.cache_clear()
+    try:
+        batches = dns_challenge_batches()
+        result = {"source": "DNS Challenge (Interspeech 2020) synthetic no-reverb test set, 16 kHz",
+                  "clips": DNS_CLIPS, "seconds": DNS_SECONDS, "batch": DNS_BATCH,
+                  "graphs": "fabricated: seeded weights in P.808 and P.835 shapes (no DNS checkpoint is in the repo)",
+                  "graph_bytes": {k: len(v) for k, v in graphs.items()}}
+        cpu_batches = [b.cpu() for b in batches[:DNS_CPU_BATCHES]]
+        for personalized in (False, True):
+            metric = DeepNoiseSuppressionMeanOpinionScore(DNS_FS, personalized, device="cuda")
+            times = []
+            for preds in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metric.update(preds)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            value = metric.compute()
+            if not bool(torch.isfinite(value)) or not 1.0 <= float(value) <= 5.0:
+                raise AssertionError(f"audio_eval: DNSMOS mean {float(value)} is not a MOS")
+            scores = [fdnsmos.deep_noise_suppression_mean_opinion_score(b, DNS_FS, personalized)
+                      for b in batches[:DNS_CPU_BATCHES]]
+            cpu_scores = [fdnsmos.deep_noise_suppression_mean_opinion_score(b, DNS_FS, personalized)
+                          for b in cpu_batches]
+            gap = compare(scores, cpu_scores, "dnsmos.scores", lambda _: (DNSMOS_ATOL, 0.0))
+            card_prefix = DeepNoiseSuppressionMeanOpinionScore(DNS_FS, personalized, device="cuda")
+            cpu_prefix = DeepNoiseSuppressionMeanOpinionScore(DNS_FS, personalized, device="cpu")
+            for card_b, cpu_b in zip(batches, cpu_batches):
+                card_prefix.update(card_b)
+                cpu_prefix.update(cpu_b)
+            total = int(cpu_prefix.total)
+            compare(card_prefix.total, cpu_prefix.total, "dnsmos.total", lambda _: (0.0, 0.0))
+            gap = max(gap, compare(card_prefix.sum_score, cpu_prefix.sum_score, "dnsmos.sum_score",
+                                   lambda _: (DNSMOS_ATOL * total, 0.0)))
+            op_ms: dict = {}
+            fdnsmos.deep_noise_suppression_mean_opinion_score(batches[0], DNS_FS, personalized, op_times=op_ms)
+            per_clip = torch.cat(scores).mean(dim=0).tolist()
+            result["personalized" if personalized else "plain"] = {
+                "updates": len(batches), "first_update_s": times[0],
+                "us_per_update": sum(times[1:]) / (len(times) - 1) * 1e6, "value": float(value),
+                "first_batches_mean_scores": dict(zip(("p808", "sig", "bak", "ovr"), per_clip)),
+                "cpu_twin": {"batches": DNS_CPU_BATCHES, "max_gap": gap},
+                "executor_device_ms_by_op": dict(sorted(op_ms.items(), key=lambda kv: -kv[1])),
+            }
+        if not os.path.isfile(os.path.join(model_dir, "model_v8", "graph.json")):
+            raise AssertionError("audio_eval: the raw model_v8.onnx drop was not converted")
+        return result
+    finally:
+        fdnsmos._load_model.cache_clear()
+        if previous is None:
+            os.environ.pop("TORCHMETRICS_TPU_DNSMOS_DIR", None)
+        else:
+            os.environ["TORCHMETRICS_TPU_DNSMOS_DIR"] = previous
+
+
 def audio_eval_phase() -> dict:
     """WSJ0-2mix separation and VoiceBank+DEMAND enhancement on the card, each loop held
     against its CPU twin on its first batches; no K1-K5 launch."""
@@ -4896,6 +5190,12 @@ def audio_eval_phase() -> dict:
     values = loops["enhancement"]["values"]
     if not (0.0 < values["stoi"] < 1.0 and 0.0 < values["estoi"] < 1.0 and values["srmr"] > 0):
         raise AssertionError(f"audio_eval: enhancement scores out of range: {values}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "audio")
+    t0 = time.perf_counter()
+    try:
+        loops["dnsmos"] = {**dnsmos_loop(root), "wall_s": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     launches = dict(kernels.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"audio_eval: the audio path launched a kernel: {launches}")
@@ -5082,6 +5382,471 @@ def image_quality_eval_phase() -> dict:
             "loops": loops, "launches": launches,
             "cuts": {"images": "synthesized from seeds at the test sets' counts and sizes",
                      "cpu_twin": f"the first {WV3_CPU_IMAGES} images of each resolution"}}
+
+
+# ------------------------------------------------------------------ detection
+
+# COCO val2017 (Lin et al., ECCV 2014; ``instances_val2017.json``), synthesized from seeds
+# at its sizes: 5,000 images of 480 x 640, 36,781 boxes of 80 categories (COCO's thing
+# ids), each image's count drawn around the mean of 7.36 (a negative binomial, then
+# fixed to the total), the categories with a heavy head ("person" 30%, the rest a Zipf
+# tail), and COCO's size mix (41% small below 32^2, 34% medium, 25% large). Each image
+# has 100 scored detections: up to 60 jittered copies of its boxes (1-2 a box, noise
+# 2-35% of the box's size, scores falling with the noise, the category kept 90% of the
+# time) and random false positives with lower scores; scores are rounded to 3 decimals,
+# so ties occur. Batches of 16 images.
+COCO_IMAGES = 5000
+COCO_BOXES = 36_781
+COCO_SHAPE = (480, 640)
+COCO_BATCH = 16
+COCO_DETECTIONS = 100
+COCO_COPIES = 60
+COCO_THINGS = tuple(i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+COCO_PERSON_SHARE = 0.30
+COCO_SIZE_MIX = (0.41, 0.34, 0.25)
+COCO_SIDES = ((2.0, 32.0), (32.0, 96.0), (96.0, 400.0))
+COCO_CPU_IMAGES = 500
+# segm: the first 500 images, masks of 480 x 640 (ellipses inscribed in the boxes), in
+# the buffered, bit-packed layout: 50,000 detection rows of 38,400 bytes a buffer
+SEGM_IMAGES = 500
+SEGM_CPU_IMAGES = 16
+# COCO panoptic val2017 (Kirillov et al., CVPR 2019), synthesized: 5,000 images of 480 x
+# 640, 133 categories (80 things, 53 stuff, COCO panoptic's ids), batches of 8. Each
+# image has 4 stuff categories over 32 x 32 blocks (5% unlabeled, category 0: void in
+# the target) and 3-14 thing instances (ellipses of COCO's size mix) painted over them;
+# the prediction jitters each instance (10% missed, 10% of categories changed) and
+# reassigns 10% of the stuff blocks.
+PANOPTIC_IMAGES = 5000
+PANOPTIC_BATCH = 8
+PANOPTIC_STUFFS = (92, 93, 95, 100, 107, 109, 112, 118, 119, 122, 125, 128, 130, 133, 138, 141, 144, 145, 147,
+                   148, 149, 151, 154, 155, 156, 159, 161, 166, 168, 171, 175, 176, 177, 178, 180, 181, 184, 185,
+                   186, 187, 188, 189, 190, 191, 192, 193, 194, 195, 196, 197, 198, 199, 200)
+PANOPTIC_INSTANCES = (3, 14)
+PANOPTIC_CPU_IMAGES = 16
+DETECTION_ATOL = 1e-6  # summary values, IoUs of the IoU family, panoptic qualities
+PANOPTIC_IOU_RTOL = 1e-6  # the float32 iou_sum state: a float64 sum in another order
+DETECTION_EXACT = (".precision", ".recall", ".scores", ".classes", ".ious")
+
+
+def coco_plan(seed: int = 93) -> dict:
+    """Each image's box count (summing to COCO_BOXES) and the category distribution."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    mean = COCO_BOXES / COCO_IMAGES
+    counts = r.negative_binomial(1.2, 1.2 / (1.2 + mean), COCO_IMAGES)
+    while counts.sum() != COCO_BOXES:
+        i = r.randint(COCO_IMAGES)
+        counts[i] = max(0, counts[i] + (1 if counts.sum() < COCO_BOXES else -1))
+    tail = 1.0 / np.arange(2, len(COCO_THINGS) + 1) ** 1.1
+    probs = np.concatenate([[COCO_PERSON_SHARE], (1 - COCO_PERSON_SHARE) * tail / tail.sum()])
+    return {"counts": counts, "probs": probs}
+
+
+def coco_boxes(g, n: int, device: str = "cuda"):
+    """``n`` xyxy float32 boxes in a 480 x 640 image of COCO's size mix."""
+    import math
+
+    import torch
+
+    mix = torch.tensor(COCO_SIZE_MIX, device=device)
+    size = torch.multinomial(mix, n, replacement=True, generator=g) if n else torch.zeros(0, dtype=torch.int64,
+                                                                                          device=device)
+    lo = torch.tensor([math.log(a) for a, _ in COCO_SIDES], device=device)[size]
+    hi = torch.tensor([math.log(b) for _, b in COCO_SIDES], device=device)[size]
+    side = torch.exp(lo + (hi - lo) * torch.rand(n, generator=g, device=device))
+    aspect = torch.exp(0.5 * torch.randn(n, generator=g, device=device)).sqrt()
+    h_img, w_img = COCO_SHAPE
+    w = (side * aspect).clamp(1.0, w_img - 1)
+    h = (side / aspect).clamp(1.0, h_img - 1)
+    x1 = torch.rand(n, generator=g, device=device) * (w_img - w)
+    y1 = torch.rand(n, generator=g, device=device) * (h_img - h)
+    return torch.stack([x1, y1, x1 + w, y1 + h], dim=1)
+
+
+def coco_batch(index: int, plan: dict, device: str = "cuda", images: int | None = None) -> tuple:
+    """(preds, target) of batch ``index``: per-image dicts of boxes, scores and labels on
+    ``device``, made from the batch's seed (``images`` cuts the batch short)."""
+    import torch
+
+    start = index * COCO_BATCH
+    n_img = min(COCO_BATCH, COCO_IMAGES - start, images or COCO_BATCH)
+    g = torch.Generator(device=device).manual_seed(3000 + index)
+    counts = plan["counts"][start:start + n_img].tolist()
+    probs = torch.tensor(plan["probs"], dtype=torch.float32, device=device)
+    things = torch.tensor(COCO_THINGS, device=device)
+    n_gt = sum(counts)
+    gt_boxes = coco_boxes(g, n_gt, device)
+    gt_labels = things[torch.multinomial(probs, n_gt, replacement=True, generator=g)] if n_gt else \
+        torch.zeros(0, dtype=torch.int64, device=device)
+    per = torch.tensor(counts, device=device)
+    offset = torch.cumsum(per, 0) - per
+    slot = torch.arange(COCO_DETECTIONS, device=device)[None, :]
+    copies = torch.minimum(2 * per, torch.tensor(COCO_COPIES, device=device))[:, None]
+    is_copy = slot < copies
+    src = (offset[:, None] + slot % per.clamp(min=1)[:, None]).clamp(max=max(n_gt - 1, 0))
+    total = n_img * COCO_DETECTIONS
+    sigma = 0.02 + 0.33 * torch.rand(n_img, COCO_DETECTIONS, generator=g, device=device)
+    fp = coco_boxes(g, total, device).reshape(n_img, COCO_DETECTIONS, 4)
+    fp_labels = things[torch.multinomial(probs, total, replacement=True, generator=g)].reshape(n_img, -1)
+    if n_gt:
+        base = gt_boxes[src]
+        wh = (base[..., 2:] - base[..., :2]).repeat(1, 1, 2)
+        jittered = base + torch.randn(base.shape, generator=g, device=device) * sigma[..., None] * wh
+        jittered = torch.cat([torch.minimum(jittered[..., :2], jittered[..., 2:]),
+                              torch.maximum(jittered[..., :2], jittered[..., 2:])], dim=-1)
+        keep_label = torch.rand(n_img, COCO_DETECTIONS, generator=g, device=device) < 0.9
+        copy_labels = torch.where(keep_label, gt_labels[src], fp_labels)
+    else:
+        jittered, copy_labels = fp, fp_labels
+    boxes = torch.where(is_copy[..., None], jittered, fp)
+    labels = torch.where(is_copy, copy_labels, fp_labels)
+    noise = 0.05 * torch.randn(n_img, COCO_DETECTIONS, generator=g, device=device)
+    scores = torch.where(is_copy, (1.0 - 2.2 * sigma + noise).clamp(0.01, 1.0),
+                         0.45 * torch.rand(n_img, COCO_DETECTIONS, generator=g, device=device))
+    scores = torch.round(scores, decimals=3)
+    gt_box_list, gt_label_list = torch.split(gt_boxes, counts), torch.split(gt_labels, counts)
+    preds = [{"boxes": boxes[i], "scores": scores[i], "labels": labels[i]} for i in range(n_img)]
+    target = [{"boxes": gt_box_list[i], "labels": gt_label_list[i]} for i in range(n_img)]
+    return preds, target
+
+
+def ellipse_masks(boxes, shape=COCO_SHAPE):
+    """[n, H, W] bool: the ellipse inscribed in each xyxy box."""
+    import torch
+
+    y = torch.arange(shape[0], device=boxes.device, dtype=torch.float32)[None, :, None] + 0.5
+    x = torch.arange(shape[1], device=boxes.device, dtype=torch.float32)[None, None, :] + 0.5
+    c = (boxes[:, :2] + boxes[:, 2:]) / 2
+    half = ((boxes[:, 2:] - boxes[:, :2]) / 2).clamp(min=0.5)
+    return ((x - c[:, None, None, 0]) / half[:, None, None, 0]) ** 2 + \
+        ((y - c[:, None, None, 1]) / half[:, None, None, 1]) ** 2 <= 1.0
+
+
+def with_masks(preds: list, target: list) -> tuple:
+    """The batch's dicts with each box's ellipse mask added."""
+    return ([{**p, "masks": ellipse_masks(p["boxes"])} for p in preds],
+            [{**t, "masks": ellipse_masks(t["boxes"])} for t in target])
+
+
+def bbox_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import detection as tdet
+
+    return {
+        "map_class_metrics": tdet.MeanAveragePrecision(class_metrics=True, device=device),
+        "map_micro": tdet.MeanAveragePrecision(average="micro", device=device),
+        "map_extended": tdet.MeanAveragePrecision(extended_summary=True, device=device),
+        "iou": tdet.IntersectionOverUnion(device=device),
+        "giou": tdet.GeneralizedIntersectionOverUnion(device=device),
+        "diou": tdet.DistanceIntersectionOverUnion(device=device),
+        "ciou": tdet.CompleteIntersectionOverUnion(class_metrics=True, device=device),
+    }
+
+
+def segm_metrics(device: str, images: int = SEGM_IMAGES) -> dict:
+    from torchmetrics_tpu_torch import detection as tdet
+
+    return {"map_segm": tdet.MeanAveragePrecision(
+        iou_type="segm", buffer_capacity=images * COCO_DETECTIONS, image_capacity=images,
+        mask_shape=COCO_SHAPE, extended_summary=True, device=device)}
+
+
+def panoptic_metrics(device: str) -> dict:
+    from torchmetrics_tpu_torch import detection as tdet
+
+    kw = {"things": set(COCO_THINGS), "stuffs": set(PANOPTIC_STUFFS), "device": device}
+    return {"pq": tdet.PanopticQuality(return_sq_and_rq=True, **kw), "pq_modified": tdet.ModifiedPanopticQuality(**kw)}
+
+
+def panoptic_batch(index: int, device: str = "cuda", images: int = PANOPTIC_BATCH) -> tuple:
+    """(preds, target) int64 [B, 480, 640, 2] (category, instance) maps of batch ``index``."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(4000 + index)
+    h, w = COCO_SHAPE
+    bh, bw = h // 32, w // 32
+    stuffs = torch.tensor(PANOPTIC_STUFFS, device=device)
+    things = torch.tensor(COCO_THINGS, device=device)
+    choice = stuffs[torch.randint(0, len(PANOPTIC_STUFFS), (images, 4), generator=g, device=device)]
+    block = torch.randint(0, 4, (images, bh, bw), generator=g, device=device)
+    stuff = choice.gather(1, block.reshape(images, -1)).reshape(images, bh, bw)
+    void = torch.rand(images, bh, bw, generator=g, device=device) < 0.05
+    moved = torch.rand(images, bh, bw, generator=g, device=device) < 0.1
+    pred_stuff = torch.where(moved, choice.gather(1, ((block + 1) % 4).reshape(images, -1)).reshape(images, bh, bw),
+                             stuff)
+
+    def up(x):
+        return x.repeat_interleave(32, dim=1).repeat_interleave(32, dim=2)
+
+    k = PANOPTIC_INSTANCES[1]
+    count = torch.randint(PANOPTIC_INSTANCES[0], k + 1, (images, 1), generator=g, device=device)
+    present = torch.arange(k, device=device)[None, :] < count
+    boxes = coco_boxes(g, images * k, device).reshape(images, k, 4)
+    category = things[torch.randint(0, len(COCO_THINGS), (images, k), generator=g, device=device)]
+    wh = (boxes[..., 2:] - boxes[..., :2]).repeat(1, 1, 2)
+    shifted = boxes + 0.08 * torch.randn(boxes.shape, generator=g, device=device) * wh
+    pred_present = present & (torch.rand(images, k, generator=g, device=device) >= 0.1)
+    changed = torch.rand(images, k, generator=g, device=device) < 0.1
+    pred_category = torch.where(changed, things[torch.randint(0, len(COCO_THINGS), (images, k), generator=g,
+                                                                 device=device)], category)
+
+    def paint(boxes, present, category, stuff_map, void_map):
+        cover = ellipse_masks(boxes.reshape(-1, 4)).reshape(images, k, h, w) & present[..., None, None]
+        ids = (cover * torch.arange(1, k + 1, device=device)[None, :, None, None]).amax(dim=1)  # last on top
+        cat = torch.where(ids > 0, category.gather(1, (ids - 1).clamp(min=0).reshape(images, -1)).reshape(ids.shape),
+                          up(stuff_map))
+        if void_map is not None:
+            cat = torch.where((ids == 0) & up(void_map), 0, cat)
+        return torch.stack([cat, ids.to(torch.int64)], dim=-1)
+
+    return paint(shifted, pred_present, pred_category, pred_stuff, None), paint(boxes, present, category, stuff, void)
+
+
+def _detection_tolerance(where: str):
+    return (0.0, 0.0) if any(key in where for key in DETECTION_EXACT) else (DETECTION_ATOL, 0.0)
+
+
+def detection_feed(metrics: dict, batches, seconds: dict) -> int:
+    """Update every metric with each batch of the iterable, each update timed alone (host
+    clock and a synchronise); returns the number of batches."""
+    import torch
+
+    steps = 0
+    for preds, target in batches:
+        for name, m in metrics.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.update(preds, target)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        steps += 1
+    return steps
+
+
+def detection_computes(metrics: dict) -> tuple:
+    """Each metric's value and its ``compute`` seconds (the cache cleared first)."""
+    import torch
+
+    values, seconds = {}, {}
+    for name, m in metrics.items():
+        m._computed = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values[name] = m.compute()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    return values, seconds
+
+
+def detection_twin(card: dict, cpu: dict, where: str) -> float:
+    """Card against CPU: states and values, the surfaces, IoU dicts and counts exactly,
+    the rest within DETECTION_ATOL (panoptic's ``iou_sum`` within PANOPTIC_IOU_RTOL)."""
+    def tolerance(path):
+        if path.endswith(".iou_sum"):
+            return 0.0, PANOPTIC_IOU_RTOL
+        return _detection_tolerance(path)
+
+    gap = 0.0
+    for name in card:
+        gap = max(gap, compare(card[name].state_dict(persistent_only=False), cpu[name].state_dict(persistent_only=False),
+                               f"{where}.state.{name}", tolerance))
+        gap = max(gap, compare(card[name].compute(), cpu[name].compute(), f"{where}.value.{name}", tolerance))
+    return gap
+
+
+def coco_prefix(plan: dict, images: int, device: str, masks: bool = False):
+    """The batches of the first ``images`` images."""
+    for index in range(-(-images // COCO_BATCH)):
+        preds, target = coco_batch(index, plan, device, images=images - index * COCO_BATCH)
+        yield with_masks(preds, target) if masks else (preds, target)
+
+
+def map_profile(metric) -> dict:
+    """torch.profiler over one warm ``compute`` (the metric has computed before): device ms
+    (kernels), busy share, and for the matcher's and the accumulation's ranges the device
+    ms of the kernels launched in each and each range's span on the device."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    metric._computed = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metric.compute()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, spans, top = 0.0, {}, {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("MeanAveragePrecision."):  # a range's span on the device, not a kernel
+                spans[e.key] = us / 1e3
+                continue
+            device_us += us
+            top[e.key] = us
+    ranges = {}
+    for e in prof.events():  # the kernels launched inside each range (its host-side event)
+        if e.name.startswith("MeanAveragePrecision.") and e.device_type == torch.autograd.DeviceType.CPU:
+            total = getattr(e, "device_time_total", None)
+            total = getattr(e, "cuda_time_total", 0) if total is None else total
+            ranges[e.name] = ranges.get(e.name, 0.0) + total / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": device_us / 1e3,
+            "device_busy_share": device_us / 1e6 / wall if wall else None,
+            "range_kernel_ms": ranges, "range_device_span_ms": spans,
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3} for k, us in sorted(top.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def detection_eval_phase() -> dict:
+    """COCO val2017 bbox (three mean APs and the IoU family), its first 500 images as
+    segm, and COCO panoptic val2017 on the card, each held against its CPU twin; one
+    bincount launch a panoptic update a metric."""
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    plan = coco_plan()
+    kernels.reset_launch_counts()
+    result = {"phase": "detection_eval"}
+    parts, last = {}, [time.perf_counter()]
+
+    def mark(name: str) -> None:  # the seconds since the last mark
+        now = time.perf_counter()
+        parts[name] = now - last[0]
+        last[0] = now
+
+    # ---- bbox: COCO val2017
+    card = bbox_metrics("cuda")
+    seconds: dict = {}
+    t0 = time.perf_counter()
+    updates = detection_feed(card, (coco_batch(i, plan) for i in range(-(-COCO_IMAGES // COCO_BATCH))), seconds)
+    feed_s = time.perf_counter() - t0
+    mark("bbox_feed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    values, compute_s = detection_computes(card)
+    peak = torch.cuda.max_memory_allocated() - base
+    _, warm_s = detection_computes(card)
+    mark("bbox_computes")
+    detections = sum(int(m.numel()) for m in card["map_class_metrics"].detection_scores)
+    boxes = sum(int(m.numel()) for m in card["map_class_metrics"].groundtruth_labels)
+    if detections != COCO_IMAGES * COCO_DETECTIONS or boxes != COCO_BOXES:
+        raise AssertionError(f"detection_eval: {detections} detections and {boxes} boxes accumulated")
+    for name in ("map_class_metrics", "map_micro", "map_extended"):
+        v = values[name]
+        if not 0.0 < float(v["map"]) < 1.0 or not 0.0 < float(v["map_50"]) <= 1.0:
+            raise AssertionError(f"detection_eval: {name} out of range: map {float(v['map'])}")
+    summary = {name: {k: float(x) for k, x in v.items() if torch.is_tensor(x) and x.numel() == 1}
+               for name, v in values.items()}
+    profile = map_profile(card["map_class_metrics"])
+    mark("bbox_profile")
+    ext = values["map_extended"]
+    result["bbox"] = {
+        "source": "COCO val2017 (instances), synthesized at its sizes", "images": COCO_IMAGES, "boxes": boxes,
+        "detections": detections, "batch": COCO_BATCH, "updates": updates, "feed_s": feed_s,
+        "us_per_update": {k: v / updates * 1e6 for k, v in seconds.items()},
+        "compute_s": compute_s, "warm_compute_s": warm_s, "peak_compute_bytes": peak, "values": summary,
+        "classes": int(values["map_class_metrics"]["classes"].numel()), "iou_dict_entries": len(ext["ious"]),
+        "compute_profile": profile,
+    }
+    del card, values, ext
+
+    cpu_images = COCO_CPU_IMAGES
+    prefix, cpu = bbox_metrics("cuda"), bbox_metrics("cpu")
+    t0 = time.perf_counter()
+    for preds, target in coco_prefix(plan, cpu_images, "cuda"):
+        for name in prefix:
+            prefix[name].update(preds, target)
+            cpu[name].update(to_cpu_dicts(preds), to_cpu_dicts(target))
+    result["bbox"]["cpu_twin"] = {"images": cpu_images, "max_float_gap": detection_twin(prefix, cpu, "bbox"),
+                                  "seconds": time.perf_counter() - t0}
+    del prefix, cpu
+    mark("bbox_twin")
+
+    # ---- segm: the first 500 images, buffered bit-packed masks
+    card = segm_metrics("cuda")
+    seconds = {}
+    t0 = time.perf_counter()
+    segm_updates = detection_feed(card, coco_prefix(plan, SEGM_IMAGES, "cuda", masks=True), seconds)
+    feed_s = time.perf_counter() - t0
+    mark("segm_feed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state_bytes = sum(int(getattr(card["map_segm"], n).data.nbytes) for n in ("det_mask_rows", "gt_mask_rows"))
+    values, compute_s = detection_computes(card)
+    peak = torch.cuda.max_memory_allocated() - base
+    _, warm_s = detection_computes(card)
+    result["segm"] = {
+        "images": SEGM_IMAGES, "mask_shape": list(COCO_SHAPE), "updates": segm_updates, "feed_s": feed_s,
+        "us_per_update": {k: v / segm_updates * 1e6 for k, v in seconds.items()}, "compute_s": compute_s,
+        "warm_compute_s": warm_s, "mask_state_bytes": state_bytes, "peak_compute_bytes": peak,
+        "values": {k: float(x) for k, x in values["map_segm"].items() if torch.is_tensor(x) and x.numel() == 1},
+    }
+    del card, values
+    mark("segm_computes")
+    prefix, cpu = segm_metrics("cuda", SEGM_CPU_IMAGES), segm_metrics("cpu", SEGM_CPU_IMAGES)
+    for preds, target in coco_prefix(plan, SEGM_CPU_IMAGES, "cuda", masks=True):
+        for name in prefix:
+            prefix[name].update(preds, target)
+            cpu[name].update(to_cpu_dicts(preds), to_cpu_dicts(target))
+    result["segm"]["cpu_twin"] = {"images": SEGM_CPU_IMAGES, "max_float_gap": detection_twin(prefix, cpu, "segm")}
+    del prefix, cpu
+    torch.cuda.empty_cache()
+    mark("segm_twin")
+
+    # ---- panoptic: COCO panoptic val2017
+    before = kernels.LAUNCHES["bincount"]
+    card = panoptic_metrics("cuda")
+    seconds = {}
+    t0 = time.perf_counter()
+    pq_updates = detection_feed(card, (panoptic_batch(i) for i in range(PANOPTIC_IMAGES // PANOPTIC_BATCH)), seconds)
+    feed_s = time.perf_counter() - t0
+    mark("panoptic_feed")
+    launched = kernels.LAUNCHES["bincount"] - before
+    if launched != pq_updates * len(card):
+        raise AssertionError(f"detection_eval: {launched} bincount launches for {pq_updates} panoptic updates of "
+                             f"{len(card)} metrics")
+    values, compute_s = detection_computes(card)
+    launches = dict(kernels.LAUNCHES)  # the main path's: bbox, segm and panoptic
+    if any(v for k, v in launches.items() if k != "bincount"):
+        raise AssertionError(f"detection_eval: a kernel other than bincount was launched: {launches}")
+    pq_value = values["pq"]
+    if not 0.0 < float(pq_value[0]) < 1.0:
+        raise AssertionError(f"detection_eval: panoptic quality out of range: {pq_value.tolist()}")
+    result["panoptic"] = {
+        "source": "COCO panoptic val2017, synthesized at its sizes", "images": PANOPTIC_IMAGES,
+        "categories": {"things": len(COCO_THINGS), "stuffs": len(PANOPTIC_STUFFS)}, "batch": PANOPTIC_BATCH,
+        "updates": pq_updates, "feed_s": feed_s, "us_per_update": {k: v / pq_updates * 1e6 for k, v in seconds.items()},
+        "bincount_per_update_per_metric": launched / pq_updates / len(card), "compute_s": compute_s,
+        "values": {"pq": float(pq_value[0]), "sq": float(pq_value[1]), "rq": float(pq_value[2]),
+                   "pq_modified": float(values["pq_modified"])},
+        "true_positives": int(card["pq"].true_positives.sum()), "false_positives": int(card["pq"].false_positives.sum()),
+        "false_negatives": int(card["pq"].false_negatives.sum()),
+    }
+    prefix, cpu = panoptic_metrics("cuda"), panoptic_metrics("cpu")
+    for i in range(PANOPTIC_CPU_IMAGES // PANOPTIC_BATCH):
+        preds, target = panoptic_batch(i)
+        for name in prefix:
+            prefix[name].update(preds, target)
+            cpu[name].update(preds.cpu(), target.cpu())
+    result["panoptic"]["cpu_twin"] = {"images": PANOPTIC_CPU_IMAGES,
+                                      "max_float_gap": detection_twin(prefix, cpu, "panoptic")}
+    mark("panoptic_twin")
+    # last, after every timing: one update of both panoptic metrics under the profiler
+    result["panoptic"]["profile"] = profile_updates(panoptic_metrics("cuda"), [panoptic_batch(0)], tracked=("bincount",))
+    mark("panoptic_profile")
+    result["launches"] = launches
+    result["parts_s"] = parts
+    result["cuts"] = {"data": "synthesized from seeds at the published counts, sizes and mixes (no dataset is in "
+                              "the repo)", "segm": f"the first {SEGM_IMAGES} images",
+                      "cpu_twin": f"bbox {COCO_CPU_IMAGES}, segm {SEGM_CPU_IMAGES} and panoptic "
+                                  f"{PANOPTIC_CPU_IMAGES} images"}
+    return result
+
+
+def to_cpu_dicts(items: list) -> list:
+    return [{k: v.cpu() for k, v in d.items()} for d in items]
 
 
 def profile_loop(metrics: dict, preds, target, batch: int, steps: int, track: str | None = None) -> dict:
@@ -6700,6 +7465,10 @@ def chaos_summary(name: str, result: dict, report: dict, launches: dict, seconds
         "updates_per_s": result["updates_per_second"], "batches_fed": result["batches_fed"],
         "slos_passed": report["n_slos"] - len(report["failed"]), "slos_failed": report["failed"],
         "scrape": scrape,
+        "scrape_max_s": {route: stats.get("max_seconds")
+                         for route, stats in sorted((result["scrapes"].get("driver") or {}).items())},
+        "move_s": [row.get("seconds") for row in (placement.get("report") or {}).get("decisions", [])
+                   if row.get("action") == "move"],
         "time_to": {k: v for k, v in rows.items() if k.startswith(("time_to_fire", "time_to_resolve"))},
         "captured_variants": result["cost"]["compiled_variants"], "capture_s": result["cost"]["compile_seconds"],
         "moves": placement.get("moves_completed"), "post_shift_moves": placement.get("post_shift_moves"),
@@ -6779,7 +7548,7 @@ def chaos_eval_phase() -> dict:
         emit({"phase": "chaos_eval", **summary})
         scenarios.append(summary)
         if not report["passed"]:
-            failed[name] = chaos.format_report(report)
+            failed[name] = report
 
     # the default scenario at ImageNet width on the card, then the same schedule on the CPU
     schedule = chaos.generate(chaos.ScheduleConfig(**CHAOS_WIDE))
@@ -6794,7 +7563,7 @@ def chaos_eval_phase() -> dict:
     emit({"phase": "chaos_eval", **wide})
     scenarios.append(wide)
     if not report["passed"]:
-        failed["default_imagenet_width"] = chaos.format_report(report)
+        failed["default_imagenet_width"] = report
     t0 = time.perf_counter()
     cpu, cpu_metrics = chaos_replay(schedule, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -6803,7 +7572,12 @@ def chaos_eval_phase() -> dict:
                              f" CPU's {chaos_events(cpu)}")
     checked = chaos_states_equal(card_metrics, cpu_metrics, schedule.victim)
     if failed:
-        raise AssertionError("chaos_eval: SLOs failed on the card:\n" + "\n".join(failed.values()))
+        # the failed rows last, so that the end of the output names them
+        rows = [f"  {name}: {row['slo']} value={row['value']} threshold={row['threshold']} {row['detail']}"
+                for name, failed_report in failed.items() for row in failed_report["slos"] if not row["passed"]]
+        raise AssertionError("chaos_eval: SLOs failed on the card:\n"
+                             + "\n".join(chaos.format_report(r) for r in failed.values())
+                             + "\nthe failed SLOs:\n" + "\n".join(rows))
     total = {kernel: sum(s["launches"][kernel] for s in scenarios) for kernel in KERNEL_SOURCES}
     return {"phase": "chaos_eval", "scenarios": {s["scenario"]: {k: s[k] for k in (
                 "wall_s", "updates_per_s", "batches_fed", "slos_passed", "captured_variants", "capture_s")}
@@ -6891,7 +7665,8 @@ def main() -> int:
                                       ("--pairwise-eval", pairwise_eval_phase),
                                       ("--text-eval", text_eval_phase),
                                       ("--audio-eval", audio_eval_phase),
-                                      ("--image-quality-eval", image_quality_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--image-quality-eval", image_quality_eval_phase),
+                                      ("--detection-eval", detection_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -6991,7 +7766,7 @@ def main() -> int:
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
                      segmentation_eval_phase, pairwise_eval_phase, text_eval_phase, audio_eval_phase,
-                     image_quality_eval_phase):
+                     image_quality_eval_phase, detection_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

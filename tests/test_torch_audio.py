@@ -5,7 +5,7 @@ and its port. Covered: SNR, SI-SNR, C-SI-SNR (complex and real ``(..., F, T, 2)`
 input), SI-SDR, SA-SDR, SDR (filter lengths, ``zero_mean``, ``load_diag``, the
 ``use_cg_iter`` warning), PIT in both modes with 2 speakers (the exhaustive search) and
 4 (``linear_sum_assignment`` on the host), ``pit_permutate``, every validation message,
-the dependency gates of PESQ, pystoi and srmrpy, the DNSMOS names that raise, and each
+the dependency gates of PESQ, pystoi and srmrpy, DNSMOS's error without checkpoints, and each
 class over several batches: its states, ``merge_states`` of two halves, a JAX state dict
 loaded and updated further, and ``jit_update=True`` against the eager update.
 
@@ -255,17 +255,29 @@ def test_the_pesq_class_raises_jax_s_install_hint_at_update():
     (ta, "DeepNoiseSuppressionMeanOpinionScore"),
     (tmodules, "DeepNoiseSuppressionMeanOpinionScore"),
 ])
-def test_dnsmos_raises_naming_its_roadmap_item(module, name):
-    with pytest.raises(NotImplementedError, match="convert/`-and-DNSMOS item of ROADMAP Queue 1"):
-        getattr(module, name)
+def test_dnsmos_raises_naming_its_roadmap_item(module, name, tmp_path, monkeypatch):
+    """DNSMOS is ported (``convert/onnx_torch.py``): with no checkpoint it raises JAX's
+    ``ModuleNotFoundError`` and its text, at the call (function) or the update (class)."""
+    import torchmetrics_tpu_torch.functional.audio.dnsmos as tdnsmos
+    from torchmetrics_tpu.functional.audio import dnsmos as jdnsmos
+
+    monkeypatch.setenv("TORCHMETRICS_TPU_DNSMOS_DIR", str(tmp_path))  # an empty directory
+    monkeypatch.setattr(tdnsmos, "_dnsmos_root", lambda: None)
+    monkeypatch.setattr(jdnsmos, "_dnsmos_root", lambda: None)
+    x = np.zeros(16000, np.float32)
+    obj = getattr(module, name)
+    call = (lambda: obj(torch.from_numpy(x), 16000, False)) if module is tf else \
+        (lambda: obj(16000, False, device="cpu").update(torch.from_numpy(x)))
+    got = _message(call, ModuleNotFoundError)
+    assert got == _message(lambda: jf.deep_noise_suppression_mean_opinion_score(x, 16000, False), ModuleNotFoundError)
     with pytest.raises(AttributeError):
         module.no_such_metric  # noqa: B018
 
 
 def test_every_jax_name_but_dnsmos_is_exported():
-    dnsmos = {"deep_noise_suppression_mean_opinion_score", "DeepNoiseSuppressionMeanOpinionScore"}
-    assert sorted(tf.__all__) == sorted(set(jf.__all__) - dnsmos)
-    assert sorted(ta.__all__) == sorted(set(ja.__all__) - dnsmos)
+    """Every JAX audio name is exported, DNSMOS's too, and reaches the package's top level."""
+    assert sorted(tf.__all__) == sorted(jf.__all__)
+    assert sorted(ta.__all__) == sorted(ja.__all__)
     assert set(ta.__all__) <= set(ttm.__all__)
     assert set(tf.__all__) <= set(tfunctional.__all__) and "audio" in tfunctional.__all__
 

@@ -2820,3 +2820,243 @@ def test_srmr_on_the_card_equals_the_cpu(card, norm, fast):
     got = srmr(x.to(card), 16000, norm=norm, fast=fast)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), srmr(x, 16000, norm=norm, fast=fast), rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------- detection, ONNX and DNSMOS
+
+
+def _detections(seed: int, images: int = 10, classes: int = 5, masks: bool = False):
+    """Per-image dicts of jittered ground truths and false positives (scores with ties,
+    one zero-area pair), on the CPU; ellipse masks of 24 x 32 with ``masks``."""
+    g = torch.Generator().manual_seed(seed)
+    preds, target = [], []
+    for _ in range(images):
+        ng, nd = int(torch.randint(0, 8, (1,), generator=g)), int(torch.randint(0, 30, (1,), generator=g))
+        xy = torch.rand(ng, 2, generator=g) * 20
+        gb = torch.cat([xy, xy + torch.rand(ng, 2, generator=g) * 12 + 1], 1)
+        gl = torch.randint(0, classes, (ng,), generator=g)
+        src = torch.randint(0, max(ng, 1), (nd,), generator=g)
+        db = gb[src] + torch.randn(nd, 4, generator=g) if ng else torch.rand(nd, 4, generator=g) * 20
+        db = torch.cat([torch.minimum(db[:, :2], db[:, 2:]), torch.maximum(db[:, :2], db[:, 2:])], 1)
+        dl = torch.where(torch.rand(nd, generator=g) < 0.7, gl[src] if ng else 0,
+                         torch.randint(0, classes, (nd,), generator=g))
+        if nd and ng:
+            db[0], gb[0] = torch.tensor([5.0, 5, 5, 5]), torch.tensor([5.0, 5, 5, 5])
+        p = {"boxes": db, "scores": torch.round(torch.rand(nd, generator=g), decimals=1), "labels": dl}
+        t = {"boxes": gb, "labels": gl}
+        if masks:
+            yy, xx = torch.meshgrid(torch.arange(24) + 0.5, torch.arange(32) + 0.5, indexing="ij")
+
+            def ellipses(b):
+                c, half = (b[:, :2] + b[:, 2:]) / 2, ((b[:, 2:] - b[:, :2]) / 2).clamp(min=0.5)
+                return ((xx - c[:, None, None, 0]) / half[:, None, None, 0]) ** 2 + \
+                    ((yy - c[:, None, None, 1]) / half[:, None, None, 1]) ** 2 <= 1
+
+            p["masks"], t["masks"] = ellipses(db), ellipses(gb)
+        preds.append(p)
+        target.append(t)
+    return preds, target
+
+
+def _equal_results(got, want, where: str = "") -> None:
+    """Mean AP's surfaces, ``ious`` and ``classes`` bitwise, the summaries within 1e-6."""
+    if isinstance(want, dict):
+        assert list(got) == list(want), where
+        for k in want:
+            _equal_results(got[k], want[k], f"{where}.{k}")
+        return
+    got = got.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape, where
+    exact = any(k in where for k in (".precision", ".recall", ".scores", ".classes", ".ious"))
+    if exact or not want.is_floating_point():
+        assert torch.equal(torch.nan_to_num(got, nan=-7.0), torch.nan_to_num(want, nan=-7.0)), where
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6, msg=where)
+
+
+MAP_CARD_CASES = {
+    "bbox_list": {"extended_summary": True, "class_metrics": True},
+    "bbox_micro": {"average": "micro", "class_metrics": True},
+    "bbox_buffered": {"buffer_capacity": 400, "extended_summary": True},
+    "segm_list": {"iou_type": "segm", "extended_summary": True},
+    "segm_buffered": {"iou_type": "segm", "buffer_capacity": 400, "mask_shape": (24, 32), "extended_summary": True},
+}
+
+
+@pytest.mark.parametrize("case", sorted(MAP_CARD_CASES))
+def test_mean_ap_on_the_card_equals_the_cpu(card, case):
+    """The batched matcher and accumulation on the card equal the CPU's run exactly (every
+    IoU, surface and class), the summaries within 1e-6; no K1-K5 launch."""
+    from torchmetrics_tpu_torch.detection import MeanAveragePrecision
+
+    kwargs = MAP_CARD_CASES[case]
+    preds, target = _detections(90, masks=case.startswith("segm"))
+    on_card = MeanAveragePrecision(device=card, **kwargs)
+    on_cpu = MeanAveragePrecision(device="cpu", **kwargs)
+    kernels.reset_launch_counts()
+    for a in range(0, len(preds), 4):
+        on_card.update([{k: v.to(card) for k, v in p.items()} for p in preds[a:a + 4]],
+                       [{k: v.to(card) for k, v in t.items()} for t in target[a:a + 4]])
+        on_cpu.update(preds[a:a + 4], target[a:a + 4])
+    got = on_card.compute()
+    assert not any(kernels.LAUNCHES.values())
+    _equal_results(got, on_cpu.compute())
+
+
+def test_a_panoptic_update_launches_k4_exactly_once(card):
+    """One bincount launch an update of either panoptic metric, whatever the batch; the
+    counts equal the CPU's exactly, ``iou_sum`` within 1e-6 relative."""
+    from torchmetrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    g = torch.Generator().manual_seed(91)
+    cats = torch.tensor([0, 1, 3, 6, 7, 255])
+    for cls in (PanopticQuality, ModifiedPanopticQuality):
+        on_card = cls({0, 1, 3}, {6, 7}, allow_unknown_preds_category=True, device=card)
+        on_cpu = cls({0, 1, 3}, {6, 7}, allow_unknown_preds_category=True, device="cpu")
+        for batch in (1, 3, 8):
+            cat = cats[torch.randint(0, 6, (batch, 40, 48), generator=g)].repeat_interleave(2, 1)
+            maps = torch.stack([cat, torch.randint(0, 4, cat.shape, generator=g)], -1)
+            preds = maps.clone()
+            flip = torch.rand(cat.shape, generator=g) < 0.2
+            preds[flip] = maps.flip(1)[flip]
+            kernels.reset_launch_counts()
+            on_card.update(preds.to(card), maps.to(card))
+            assert kernels.LAUNCHES["bincount"] == 1 and sum(kernels.LAUNCHES.values()) == 1
+            on_cpu.update(preds, maps)
+        for name in ("true_positives", "false_positives", "false_negatives"):
+            assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name))
+        torch.testing.assert_close(on_card.iou_sum.cpu(), on_cpu.iou_sum, rtol=1e-6, atol=0)
+        torch.testing.assert_close(on_card.compute().cpu(), on_cpu.compute(), rtol=0, atol=1e-6)
+
+
+def _onnx_cases() -> dict:
+    """Graphs of every product and convolution route of the executor, with their input."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from chip_smoke import onnx_model as _model
+    from chip_smoke import onnx_node as _node
+
+    r = np.random.RandomState(92)
+    f = np.float32
+    return {
+        "conv2d_groups_pads_strides": (_model(
+            [_node("Conv", ["x", "w", "b"], ["c"], pads=[1, 0, 2, 1], strides=[2, 1], dilations=[1, 2], group=2),
+             _node("MaxPool", ["c"], ["y"], kernel_shape=[2, 2], strides=[2, 2])],
+            {"w": r.randn(8, 2, 3, 3).astype(f), "b": r.randn(8).astype(f)}, ["x"], ["y"]),
+            r.randn(3, 4, 33, 41).astype(f)),
+        "conv1d_strided": (_model(
+            [_node("Conv", ["x", "w", "b"], ["c"], strides=[160]),
+             _node("AveragePool", ["c"], ["y"], kernel_shape=[3], strides=[2], pads=[1, 1])],
+            {"w": r.randn(16, 1, 400).astype(f), "b": r.randn(16).astype(f)}, ["x"], ["y"]),
+            r.randn(4, 1, 16160).astype(f)),
+        "gemm_matmul": (_model(
+            [_node("Gemm", ["x", "w", "b"], ["g"], transB=1, alpha=0.5),
+             _node("MatMul", ["g", "m"], ["y"])],
+            {"w": r.randn(64, 300).astype(f), "b": r.randn(64).astype(f), "m": r.randn(64, 32).astype(f)},
+            ["x"], ["y"]), r.randn(50, 300).astype(f)),
+    }
+
+
+def _onnx_kernel_names(cases: list) -> list:
+    """For each case, the device kernels of one executor forward on the card with cuDNN's
+    and cuBLAS's TF32 flags on: the fullest of three traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.convert.onnx_reader import parse_onnx
+    from torchmetrics_tpu_torch.convert.onnx_torch import OnnxGraph
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    result = []
+    for case in cases:
+        model, x = _onnx_cases()[case]
+        graph = parse_onnx(model)
+        module = OnnxGraph(graph, graph["initializers"], device="cuda")
+        xt = torch.from_numpy(x).cuda()
+        module(xt)
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                module(xt)
+                torch.cuda.synchronize()
+            traces.append([e.key for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA and e.count])
+        result.append(max(traces, key=len))
+    return result
+
+
+@pytest.fixture(scope="module")
+def onnx_kernel_names() -> dict:
+    """``_onnx_kernel_names`` of every case, traced in a new process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    here = os.path.dirname(os.path.abspath(__file__))
+    cases = sorted(_onnx_cases())
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._onnx_kernel_names(json.loads(sys.argv[3]))))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), json.dumps(cases)],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return dict(zip(cases, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("case", ["conv1d_strided", "conv2d_groups_pads_strides", "gemm_matmul"])
+def test_executor_convolutions_and_products_reach_no_tf32_or_cudnn_kernel(card, onnx_kernel_names, case):
+    """The ONNX executor's convolutions (im2col and a grouped product) and products run in
+    full float32 (float64 where a TF32 flag is on) with both TF32 flags on, off cuDNN, and
+    equal the CPU within 1e-5 relative plus 1e-5 of the largest output; no flag is
+    written."""
+    from torchmetrics_tpu_torch.convert.onnx_reader import parse_onnx
+    from torchmetrics_tpu_torch.convert.onnx_torch import OnnxGraph
+
+    names = onnx_kernel_names[case]
+
+    def convolution_or_tf32(name: str) -> bool:
+        # cuBLAS's products (float32, or float64 where TF32 is on) share the xmma/sm90_
+        # prefixes with cuDNN's convolutions; a convolution's kernels name it
+        low = name.lower()
+        return "tf32" in low or "cudnn" in low or "implicit_convolve" in low or \
+            any(m in low for m in ("fprop", "dgrad", "wgrad", "conv2d", "convolution"))
+
+    assert names and not [n for n in names if convolution_or_tf32(n)], names
+    assert any("gemm" in n.lower() for n in names), names
+    if case.startswith("conv"):
+        assert any("im2col" in n for n in names), names
+    model, x = _onnx_cases()[case]
+    graph = parse_onnx(model)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.allow_tf32, matmul.allow_tf32)
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, True
+        got = OnnxGraph(graph, graph["initializers"], device=card)(torch.from_numpy(x).to(card))[0]
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = before
+    want = OnnxGraph(graph, graph["initializers"], device="cpu")(torch.from_numpy(x))[0]
+    # the card multiplies in float64 here (TF32 on); TF32 would miss by ~1e-3 relative
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+
+
+def test_dnsmos_on_the_card_equals_the_cpu(card, tmp_path, monkeypatch):
+    """DNSMOS on fabricated P.808 and P.835-shaped graphs (a raw drop converted on first
+    use, and a converted directory): the card's per-clip scores equal the CPU's within
+    1e-4, at 16 kHz and from 8 kHz, plain and personalized."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from torchmetrics_tpu_torch.functional.audio import dnsmos
+
+    graphs = chip_smoke.dnsmos_graphs(seed=93)
+    monkeypatch.setenv("TORCHMETRICS_TPU_DNSMOS_DIR", chip_smoke.dnsmos_dir(str(tmp_path / "dnsmos"), graphs))
+    dnsmos._load_model.cache_clear()
+    g = torch.Generator().manual_seed(93)
+    try:
+        for fs, samples, personalized in ((16000, 170000, False), (8000, 30000, True)):
+            x = 0.1 * torch.randn(2, samples, generator=g)
+            got = dnsmos.deep_noise_suppression_mean_opinion_score(x.to(card), fs, personalized)
+            assert got.device.type == "cuda"
+            want = dnsmos.deep_noise_suppression_mean_opinion_score(x, fs, personalized)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    finally:
+        dnsmos._load_model.cache_clear()

@@ -271,6 +271,41 @@ def test_tick_honors_the_cadence(side):
     assert s.samples_taken == 2
 
 
+def test_a_sample_taken_during_a_tick_lands_after_it(monkeypatch):
+    """The port only. A scrape tick stamps its sample, then refreshes the cost gauges and
+    gathers; a sample that another thread takes meanwhile (the end-of-run probe's forced
+    one) waits for the tick, so the ring stays in clock order and the two newest samples
+    span a positive window with every tenant's rate."""
+    import threading
+
+    port = SIDES["port"]
+    s, clock, _ = _sampler(port, placement={"t0": "0", "t1": "1"}, cadence_seconds=0.5)
+    _feed(port, "t0", n=2)
+    s.sample()
+    clock[0] = 1.0
+    _feed(port, "t0", n=3)
+    _feed(port, "t1", n=1)
+    original = tcost.record_gauges
+    other = {}
+
+    def record_gauges(*args, **kwargs):
+        if "thread" not in other:
+            clock[0] = 2.0  # the other thread's stamp is later than the tick's
+            other["thread"] = threading.Thread(target=s.sample)
+            other["thread"].start()
+            other["thread"].join(timeout=0.2)
+        return original(*args, **kwargs)
+
+    monkeypatch.setattr(tcost, "record_gauges", record_gauges)
+    assert s.tick() is not None
+    other["thread"].join(timeout=10)
+    assert not other["thread"].is_alive()
+    assert s.samples_taken == 3
+    rates = s.rates()
+    assert rates["window_seconds"] == 1.0
+    assert sorted(rates["tenants"]) == ["t0", "t1"]
+
+
 def test_constructor_validation_carries_jax_s_messages():
     for kwargs in ({"cadence_seconds": 0}, {"ring": 1}):
         with pytest.raises(ValueError) as jerr:

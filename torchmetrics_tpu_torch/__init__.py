@@ -26,10 +26,12 @@ input transformers, the tracker and feature sharing); the clustering scores (ext
 and intrinsic), the nominal association statistics, the segmentation scores and the
 pairwise distances (``functional.pairwise``); the text domain's string and token
 metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity; not
-yet BERTScore and InfoLM); the audio domain less DNSMOS (SNR, SI-SNR, C-SI-SNR, SDR,
-SI-SDR, SA-SDR, PIT, native STOI/ESTOI and SRMR, the gated PESQ); the model-free rest of
-the image domain (SAM, ERGAS, SCC, VIF, RASE, D-lambda, D-s, QNR, image gradients); and
-the fleet plane (``fleet``, ``obs.fleet``) with the live
+yet BERTScore and InfoLM); the audio domain (SNR, SI-SNR, C-SI-SNR, SDR, SI-SDR, SA-SDR,
+PIT, native STOI/ESTOI and SRMR, the gated PESQ, and DNSMOS on the port's ONNX executor,
+``convert.onnx_torch``); the model-free rest of the image domain (SAM, ERGAS, SCC, VIF,
+RASE, D-lambda, D-s, QNR, image gradients); detection (COCO mean average precision with
+its greedy matcher batched on the device, IoU, GIoU, DIoU, CIoU, and panoptic quality
+counted on the bincount kernel); and the fleet plane (``fleet``, ``obs.fleet``) with the live
 introspection server (``obs.server``, ``python -m torchmetrics_tpu_torch.obs.serve``).
 """
 
@@ -45,6 +47,8 @@ from torchmetrics_tpu_torch.clustering import __all__ as _clustering_all
 from torchmetrics_tpu_torch.collections import MetricCollection
 from torchmetrics_tpu_torch.core.buffer import MaskedBuffer
 from torchmetrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
 from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
@@ -72,6 +76,6 @@ __version__ = "0.1.0.dev0"
 __all__ = [
     "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
     *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, *_clustering_all, *_nominal_all,
-    *_segmentation_all, *_text_all, *_audio_all, "BootStrapper", "ClasswiseWrapper",
+    *_segmentation_all, *_text_all, *_audio_all, *_detection_all, "BootStrapper", "ClasswiseWrapper",
     "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 ]

@@ -2,8 +2,8 @@
 
 Counterpart of ``torchmetrics_tpu/audio/modules.py``: every class averages a
 per-sample score, with JAX's states (``sum_score`` float32 and ``total`` int32, both
-summed across processes) and compute-group parameters. DNSMOS is not ported yet
-(ROADMAP Queue 1, the ``convert/``-and-DNSMOS item); asking for its class raises.
+summed across processes) and compute-group parameters. DNSMOS runs converted ONNX
+graphs on the port's executor (``functional/audio/dnsmos.py``).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from torchmetrics_tpu_torch.core.metric import Metric
-from torchmetrics_tpu_torch.functional.audio import _DNSMOS, _dnsmos_missing
+from torchmetrics_tpu_torch.functional.audio.dnsmos import deep_noise_suppression_mean_opinion_score
 from torchmetrics_tpu_torch.functional.audio.external import perceptual_evaluation_speech_quality
 from torchmetrics_tpu_torch.functional.audio.pit import permutation_invariant_training
 from torchmetrics_tpu_torch.functional.audio.sdr import (
@@ -40,12 +40,6 @@ _METRIC_KWARGS = (
     "device", "compute_on_cpu", "dist_sync_on_step", "process_group", "dist_sync_fn", "distributed_available_fn",
     "sync_on_compute", "compute_with_cache", "jit_update", "error_policy",
 )
-
-
-def __getattr__(name: str):
-    if name in _DNSMOS:
-        raise _dnsmos_missing(__name__, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class _MeanScoreMetric(Metric):
@@ -401,3 +395,30 @@ class SpeechReverberationModulationEnergyRatio(_MeanScoreMetric):
 
     def _compute_group_params(self):
         return (self.fs, self.n_cochlear_filters, self.low_freq, self.min_cf, self.max_cf, self.norm, self.fast)
+
+
+class DeepNoiseSuppressionMeanOpinionScore(_MeanScoreMetric):
+    r"""DNSMOS from converted DNS-challenge ONNX checkpoints, run on the port's ONNX
+    executor (drop the .onnx files under ``$TORCHMETRICS_TPU_DNSMOS_DIR`` or
+    ``<repo>/weights/dnsmos`` — see ``functional/audio/dnsmos.py``)."""
+
+    is_differentiable = False
+    higher_is_better = True
+    plot_lower_bound: float = 1.0
+    plot_upper_bound: float = 5.0
+
+    def __init__(self, fs: int, personalized: bool, **kwargs: Any) -> None:
+        # the pipeline mixes device graphs with host-side calibration (np.polyval),
+        # so the update cannot be captured
+        kwargs.setdefault("jit_update", False)
+        super().__init__(**kwargs)
+        self.fs = fs
+        self.personalized = personalized
+
+    def update(self, preds: Tensor) -> None:
+        """Accumulate per-sample DNSMOS scores (all hops batched on the device)."""
+        preds = torch.as_tensor(preds, device=self.device)
+        self._accumulate(deep_noise_suppression_mean_opinion_score(preds, self.fs, self.personalized))
+
+    def _compute_group_params(self):
+        return (self.fs, self.personalized)

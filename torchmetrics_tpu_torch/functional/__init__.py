@@ -4,6 +4,7 @@ from torchmetrics_tpu_torch.functional import (
     audio,
     classification,
     clustering,
+    detection,
     image,
     nominal,
     pairwise,
@@ -18,6 +19,8 @@ from torchmetrics_tpu_torch.functional.classification import *  # noqa: F401,F40
 from torchmetrics_tpu_torch.functional.classification import __all__ as _classification_all
 from torchmetrics_tpu_torch.functional.clustering import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.clustering import __all__ as _clustering_all
+from torchmetrics_tpu_torch.functional.detection import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
@@ -34,7 +37,7 @@ from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
-    "audio", "classification", "clustering", "image", "nominal", "pairwise", "regression", "retrieval", "segmentation",
-    "text", *_audio_all, *_classification_all, *_clustering_all, *_image_all, *_nominal_all, *_pairwise_all,
-    *_regression_all, *_retrieval_all, *_segmentation_all, *_text_all,
+    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval",
+    "segmentation", "text", *_audio_all, *_classification_all, *_clustering_all, *_detection_all, *_image_all,
+    *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_segmentation_all, *_text_all,
 ]

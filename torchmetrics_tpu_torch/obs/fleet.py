@@ -175,6 +175,15 @@ class FleetSampler:
         loudly (``degraded=True`` + ``missing_hosts``) under the configured
         ``sync_guard`` instead of stalling. Returns the appended sample.
         """
+        with self._gather_lock:
+            return self._sample_locked(now)
+
+    def _sample_locked(self, now: Optional[float]) -> Dict[str, Any]:
+        """One sample with ``_gather_lock`` held from the gather to the append, so
+        that samples enter the ring in the order of their clock stamps: a stamp
+        taken before another thread's whole sample would otherwise land after it,
+        and the ring's two newest samples would span a negative window (no rates,
+        no skew until the next sample)."""
         rec = self._rec()
         # refresh the burn numerators this host contributes before the gather:
         # the cost ledger's cumulative flop/byte estimates live as gauges only
@@ -182,10 +191,9 @@ class FleetSampler:
         from torchmetrics_tpu_torch.obs import cost as _cost
 
         _cost.record_gauges(recorder=rec)
-        with self._gather_lock:
-            merged = _aggregate.aggregate(
-                recorder=rec, include_events=False, description=self.description
-            )
+        merged = _aggregate.aggregate(
+            recorder=rec, include_events=False, description=self.description
+        )
         mono = float(now if now is not None else self._clock())
         sample = _aggregate.fleet_sample(merged, unix=self._wall(), mono=mono)
         with self._lock:
@@ -205,13 +213,18 @@ class FleetSampler:
         with no thread at all. Returns the new sample, or ``None`` when the
         cadence has not elapsed or another gather is already in flight.
         """
-        mono = float(now if now is not None else self._clock())
-        with self._lock:
-            if self._ring and mono - self._ring[-1]["mono"] < self.cadence_seconds:
-                return None
-        if self._gather_lock.locked():
+        if not self._gather_lock.acquire(blocking=False):
             return None  # a concurrent scrape is already mid-gather
-        return self.sample(now=mono)
+        try:
+            # stamped with the gather lock held: no other sample can land
+            # between this stamp and this sample's append
+            mono = float(now if now is not None else self._clock())
+            with self._lock:
+                if self._ring and mono - self._ring[-1]["mono"] < self.cadence_seconds:
+                    return None
+            return self._sample_locked(mono)
+        finally:
+            self._gather_lock.release()
 
     def start(self) -> "FleetSampler":
         """Start the background daemon sampling thread (idempotent)."""
