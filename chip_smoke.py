@@ -38,8 +38,9 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    between, then one profile of each grouped loop. Integer states and every value of a
    group of two or more must be bitwise the per-metric loop's; other floats within
    the classification tolerance.
-7. ``pipeline_eval``: both eval loops' grouped collections three ways, in two
-   alternating rounds: the collection's eager loop, ``MetricPipeline`` with ``fuse=1``
+7. ``pipeline_eval``: both eval loops' grouped collections three ways, in one round
+   (two alternating rounds before a cut of script time that pays for
+   ``model_image_eval``): the collection's eager loop, ``MetricPipeline`` with ``fuse=1``
    (one CUDA-graph replay a step) and with ``fuse=8`` (one replay a chunk of 8; K1,
    K2 and K3 inside the graph), each captured by its warmup before the clock starts.
    It prints µs per step, graph replays and host dispatches per batch, K1/K2/K3
@@ -51,7 +52,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    again, twice at most), both
    pipelines equal the eager loop on the card (integers exactly, floats within the
    classification tolerance), the fused one equals its CPU run on a prefix of 9
-   ImageNet and 2 CTR batches, the replays equal the chunks with no capture, degraded
+   ImageNet and 1 CTR batch, the replays equal the chunks with no capture, degraded
    chunk or eager batch in the loop, and a fault run (NaN put into ImageNet batches
    13 and 42 under the ``quarantine`` policy) quarantines exactly those update
    indices, replays their two chunks per batch and equals the eager loop without them.
@@ -282,16 +283,33 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    16 (panoptic) images: the mean AP surfaces, ``ious``, classes and every count
    exactly, summary values and IoUs within 1e-6, panoptic ``iou_sum`` within 1e-6
    relative.
-24. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+24. ``model_image_eval``: the model-based image metrics at published sizes on seeded
+   random weights at the published widths (no checkpoint is in the repo), synthesized
+   from seeds: FID-10k at CIFAR-10's shape (10,000 + 10,000 uint8 images of 3 x 32 x
+   32, batches of 200, ``FrechetInceptionDistance(feature=2048)``), then IS (10
+   splits of ``logits_unbiased``), KID (100 subsets of 1,000) and MiFID on the first
+   2,000 images of each set, each through its own extractor; LPIPS on AlexNet, VGG16
+   and SqueezeNet1.1 (1,000 pairs of 3 x 256 x 256 in batches of 50, the repo's heads;
+   the backbones written as torchvision ``.pth`` files and converted with
+   ``convert_lpips_backbone``); perceptual path length with JAX's defaults over a
+   seeded 512-wide stand-in generator. It prints the extractor's images per second,
+   ms an update, ``compute`` seconds, peak memory and a profiled update's device ms by
+   kernel kind, each LPIPS backbone's ms an update and profile, and PPL's samples per
+   second. It fails unless no K1-K5 kernel launched, no profiled kernel is a cuDNN
+   convolution or a TF32 product, the values are finite and in range, and the card
+   equals its CPU twin (16 + 16 images: FID states within 1e-4 of their largest
+   magnitude, FID / IS / KID / MiFID within 1e-3 of the mean; 4 pairs a backbone:
+   LPIPS within 1e-5 relative; 8 PPL samples within 1e-2 relative).
+25. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    4 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-25. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+26. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-26. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+27. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -312,7 +330,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-27. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+28. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -338,7 +356,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-28. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+29. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -429,7 +447,7 @@ included).
 
     python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
         --segmentation-eval --pairwise-eval --text-eval --audio-eval --image-quality-eval \
-        --detection-eval
+        --detection-eval --model-image-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -1352,12 +1370,14 @@ def collection_eval_phase() -> tuple:
 # the fused chunk of the third variant, and the two faulted ImageNet batches (chunks 1
 # and 5 of 8) of the fault run
 PIPELINE_FUSE = 8
-PIPELINE_ROUNDS = 2
+# one round of the three variants: a cut of script time that pays for ``model_image_eval``
+# (two alternating rounds before; the checks are those of every round)
+PIPELINE_ROUNDS = 1
 PIPELINE_FAULTS = (13, 42)
 # batches of each set that the card's fused pipeline and the CPU's run alike: a full
-# chunk and a padded one (ImageNet 8 + 1; CTR 2, padded to 8): a CPU step costs 1.7 s of
-# ImageNet and 7 s of CTR (its 1000-threshold curves)
-PIPELINE_CPU_BATCHES = {"imagenet": 9, "binary": 2}
+# chunk and a padded one (ImageNet 8 + 1; CTR 1, padded to 8, since the same cut): a CPU
+# step costs 1.7 s of ImageNet and 7 s of CTR (its 1000-threshold curves)
+PIPELINE_CPU_BATCHES = {"imagenet": 9, "binary": 1}
 PIPELINE_VARIANTS = ("eager", "fuse_1", "fuse_8")
 
 
@@ -1517,7 +1537,7 @@ def pipeline_fault_run(batches: list) -> dict:
 
 
 def pipeline_eval_phase() -> dict:
-    """Both eval loops as one grouped MetricCollection three ways, in alternating rounds:
+    """Both eval loops as one grouped MetricCollection three ways, in PIPELINE_ROUNDS rounds:
     its own eager loop, a MetricPipeline with fuse=1 (one graph replay a step) and one
     with fuse=8 (one replay a chunk). Fails unless the pipelines equal the eager loop on
     the card, the fused one equals its CPU run on a prefix, every batch of a pipeline
@@ -7589,6 +7609,464 @@ def chaos_eval_phase() -> dict:
 # --------------------------------------------------------------------------- main
 
 
+# ------------------------------------------------------------------ model-based image
+
+# FID-10k at CIFAR-10's shape (Krizhevsky 2009; FID over the 10,000 test images against
+# 10,000 generated ones, the protocol of the GAN literature's CIFAR-10 tables),
+# synthesized from seeds: 10,000 "real" and 10,000 "generated" uint8 images of 3 x 32 x
+# 32 (low-frequency fields plus pixel noise, the generated set with another seed and
+# more contrast), batches of 200, resized to 299^2 by the extractor. The networks run
+# at their published widths on seeded random weights (no checkpoint is in the repo):
+# the FID Inception-v3 from ``torch.Generator`` seed 0, the LPIPS backbones He-normal
+# from seeds 1-3 written as torchvision ``.pth`` files and converted with
+# ``convert_lpips_backbone``; the LPIPS heads are the repo's.
+FID10K_IMAGES = 10_000
+FID10K_BATCH = 200
+CIFAR_SHAPE = (3, 32, 32)
+# IS, KID and MiFID on the first 2,000 images of each set, each through its own extractor
+SUBSET_IMAGES = 2_000
+KID_SUBSETS, KID_SUBSET_SIZE, IS_SPLITS = 100, 1000, 10
+# LPIPS (Zhang et al., CVPR 2018) at 256^2: 1,000 pairs in batches of 50 per backbone
+LPIPS_PAIRS, LPIPS_BATCH, LPIPS_SIZE = 1_000, 50, 256
+LPIPS_NETS = ("alex", "vgg", "squeeze")
+LPIPS_HINTS = {"alex": "alexnet-owt-random.pth", "vgg": "vgg16-random.pth", "squeeze": "squeezenet1_1-random.pth"}
+# perceptual path length with JAX's defaults (10,000 samples, batch 128, epsilon 1e-4,
+# lerp, resize 64, VGG LPIPS) over a seeded stand-in generator: a 512-wide latent
+# through a fixed random map to 3 x 32 x 32, upsampled to 3 x 256 x 256, tanh
+PPL_LATENT, PPL_IMAGE = 512, 256
+# CPU twins: 16 + 16 images for the Inception family (KID with subsets of 8), 4 pairs a
+# LPIPS net, 8 PPL samples; the bounds are the parity tests' (tests/test_torch_inception.py,
+# test_torch_lpips.py, test_torch_perceptual_path_length.py)
+MODEL_CPU_IMAGES = 16
+LPIPS_CPU_PAIRS = 4
+PPL_CPU_SAMPLES = 8
+MODEL_STATE_TOL = 1e-4  # the FID states: within 1e-4 of each state's largest magnitude
+MODEL_SCORE_RTOL = 1e-3  # FID, IS, KID, MiFID from the net
+LPIPS_TWIN_RTOL = 1e-5
+PPL_TWIN_RTOL = 1e-2  # epsilon 1e-4 divides each distance by 1e-8
+# a kernel name that would mean a convolution on cuDNN or a TF32 product
+# the card (a rehearsal on the CPU sets "cpu")
+MODEL_DEVICE = "cuda"
+CONV_OR_TF32_MARKS = ("cudnn", "tf32", "implicit_convolve", "fprop", "dgrad", "wgrad", "conv2d", "convolution")
+
+
+def model_image_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "model_image")
+
+
+def cifar10_sets(seed: int = 101, device: str = "") -> tuple:
+    """FID10K_IMAGES real and generated uint8 images of CIFAR_SHAPE, made on ``device``."""
+    import torch
+    import torch.nn.functional as F
+
+    device = device or MODEL_DEVICE
+
+    def one(g, contrast: float):
+        base = torch.rand(FID10K_IMAGES, 3, 8, 8, generator=g, device=device)
+        smooth = F.interpolate(base, size=CIFAR_SHAPE[1:], mode="bilinear", align_corners=False)
+        noise = torch.rand(FID10K_IMAGES, *CIFAR_SHAPE, generator=g, device=device) - 0.5
+        return ((smooth - 0.5) * contrast + 0.5 + 0.2 * noise).clamp(0, 1).mul(255).to(torch.uint8)
+
+    return (one(torch.Generator(device=device).manual_seed(seed), 1.0),
+            one(torch.Generator(device=device).manual_seed(seed + 1), 1.4))
+
+
+def lpips_pairs(batch_index: int, n: int = 0, device: str = "") -> tuple:
+    """Batch ``batch_index`` of the LPIPS pairs: images in [-1, 1] and their distortions."""
+    import torch
+
+    device, n = device or MODEL_DEVICE, n or LPIPS_BATCH
+    g = torch.Generator(device=device).manual_seed(700 + batch_index)
+    img1 = torch.rand(n, 3, LPIPS_SIZE, LPIPS_SIZE, generator=g, device=device) * 2 - 1
+    img2 = (img1 + 0.3 * torch.randn(n, 3, LPIPS_SIZE, LPIPS_SIZE, generator=g, device=device)).clamp(-1, 1)
+    return img1, img2
+
+
+def lpips_backbone_files(root: str) -> dict:
+    """Seeded random torchvision-layout backbones as ``.pth`` files, converted to
+    ``{net}.npz`` by the port's converter; the seconds it took."""
+    import torch
+
+    from torchmetrics_tpu_torch.convert import convert_lpips_backbone
+    from torchmetrics_tpu_torch.functional.image._lpips_backbones import LpipsPyramid
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = {}
+    for seed, net in enumerate(LPIPS_NETS, start=1):
+        pth = os.path.join(root, LPIPS_HINTS[net])
+        torch.save(LpipsPyramid(net).init_random(torch.Generator().manual_seed(seed)).state_dict(), pth)
+        paths[net] = convert_lpips_backbone(pth, net, os.path.join(root, f"{net}.npz"))
+    return {"paths": paths, "seconds": time.perf_counter() - t0}
+
+
+class PPLGenerator:
+    """The seeded stand-in generator of the PPL loop: latents drawn on the host from
+    ``seed`` (so the card and its CPU twin see the same ones), images made on ``device``."""
+
+    def __init__(self, device: str, seed: int = 0) -> None:
+        import torch
+
+        self.device = torch.device(device)
+        self.g = torch.Generator().manual_seed(seed)
+        w = torch.randn(PPL_LATENT, 3 * 32 * 32, generator=torch.Generator().manual_seed(1000)) / PPL_LATENT ** 0.5
+        self.w = w.to(self.device)
+
+    def sample(self, n: int):
+        import torch
+
+        return torch.randn(n, PPL_LATENT, generator=self.g).to(self.device)
+
+    def __call__(self, z):
+        import torch
+        import torch.nn.functional as F
+
+        from torchmetrics_tpu_torch.utils.compute import _matmul_full_float32
+
+        x = _matmul_full_float32(z, self.w).reshape(-1, 3, 32, 32)
+        return torch.tanh(F.interpolate(x, size=(PPL_IMAGE, PPL_IMAGE), mode="bilinear", align_corners=False))
+
+
+def model_kernel_profile(fn, warm: bool = True) -> dict:
+    """torch.profiler over one call of ``fn`` (after a warm one): wall and device ms,
+    the busy share, device ms by kernel kind (im2col, products, pools, concatenation,
+    gathers and upsampling, elementwise: batch norm, ReLU and the rest), the top kernels,
+    and any kernel whose name marks a cuDNN convolution or a TF32 product."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.key] = us
+
+    def kind(name: str) -> str:
+        low = name.lower()
+        if "im2col" in low:
+            return "im2col"
+        if any(m in low for m in ("gemm", "xmma", "cutlass", "gemv")):
+            return "products"
+        if "pool" in low:
+            return "pools"
+        if "catarray" in low or "cat_" in low:
+            return "concatenation"
+        if any(m in low for m in ("index", "gather", "upsample")):
+            return "gathers_and_upsampling"
+        if "reduce" in low:
+            return "reductions"
+        return "elementwise"
+
+    kinds = {}
+    for name, us in by_kernel.items():
+        kinds[kind(name)] = kinds.get(kind(name), 0.0) + us / 1e3
+    total = sum(by_kernel.values()) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": total, "device_busy_share": total / (wall * 1e3) if wall else None,
+            "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3}
+                            for k, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]],
+            "conv_or_tf32_kernels": sorted(k for k in by_kernel if any(m in k.lower() for m in CONV_OR_TF32_MARKS))}
+
+
+def timed_updates(metric, batches, **kwargs) -> list:
+    """Seconds of each ``metric.update(batch, **kwargs)``, each ending in a synchronise."""
+    import torch
+
+    seconds = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(*batch, **kwargs) if isinstance(batch, tuple) else metric.update(batch, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def _rel_gap(got, want) -> float:
+    got, want = float(got), float(want)
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def inception_family(real, fake) -> dict:
+    """FID-10k, then IS, KID and MiFID on the first SUBSET_IMAGES of each set."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        InceptionScore,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from torchmetrics_tpu_torch.utils.compute import IM2COL_CHUNK_BYTES
+
+    out = {}
+    t0 = time.perf_counter()
+    fid = FrechetInceptionDistance(feature=2048, device=MODEL_DEVICE)
+    construct_s = time.perf_counter() - t0
+    batches = [real[i:i + FID10K_BATCH] for i in range(0, FID10K_IMAGES, FID10K_BATCH)]
+    fakes = [fake[i:i + FID10K_BATCH] for i in range(0, FID10K_IMAGES, FID10K_BATCH)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    first = timed_updates(fid, batches[:1], real=True)
+    seconds = timed_updates(fid, batches[1:], real=True) + timed_updates(fid, fakes, real=False)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    value = float(fid.compute())
+    compute_s = time.perf_counter() - t0
+    if not (np.isfinite(value) and value >= 0):
+        raise AssertionError(f"model_image_eval: FID-10k is {value}")
+    if int(fid.real_features_num_samples) != FID10K_IMAGES or int(fid.fake_features_num_samples) != FID10K_IMAGES:
+        raise AssertionError("model_image_eval: FID-10k did not count 10,000 images a side")
+    per_update = sorted(seconds)
+    out["fid"] = {"value": value, "updates": len(seconds) + 1, "first_update_s": first[0],
+                  "ms_per_update_median": per_update[len(per_update) // 2] * 1e3,
+                  "images_per_s": FID10K_BATCH * len(seconds) / sum(seconds), "compute_s": compute_s,
+                  "peak_bytes_over_data": peak - base, "im2col_chunk_bytes": IM2COL_CHUNK_BYTES,
+                  "construct_s": construct_s, "feed_s": sum(first) + sum(seconds)}
+    ext = fid.inception
+    batch = batches[0]
+    t0 = time.perf_counter()
+    # one traced update: the profiler's own cost grows with the ~1,500 kernels an update
+    out["fid"]["profile_update"] = model_kernel_profile(lambda: fid.update(batch, real=True), warm=False)
+    out["fid"]["profile_resize"] = model_kernel_profile(lambda: ext._preprocess(batch))
+    out["fid"]["profiles_s"] = time.perf_counter() - t0
+
+    n = SUBSET_IMAGES
+    subsets = [(real[i:i + FID10K_BATCH], fake[i:i + FID10K_BATCH]) for i in range(0, n, FID10K_BATCH)]
+    t0 = time.perf_counter()
+    inception = InceptionScore(splits=IS_SPLITS, device=MODEL_DEVICE)
+    kid = KernelInceptionDistance(subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=MODEL_DEVICE)
+    mifid = MemorizationInformedFrechetInceptionDistance(device=MODEL_DEVICE)
+    out["construct_three_s"] = time.perf_counter() - t0
+    for name, metric in (("inception_score", inception), ("kid", kid), ("mifid", mifid)):
+        t0 = time.perf_counter()
+        for r, f in subsets:
+            if name == "inception_score":
+                metric.update(f)
+            else:
+                metric.update(r, real=True)
+                metric.update(f, real=False)
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        result = metric.compute()
+        values = [float(v) for v in result] if isinstance(result, tuple) else [float(result)]
+        out[name] = {"values": values, "feed_s": feed_s, "compute_s": time.perf_counter() - t0,
+                     "images": n * (1 if name == "inception_score" else 2)}
+        if not all(np.isfinite(values)):
+            raise AssertionError(f"model_image_eval: {name} is not finite: {values}")
+    if out["inception_score"]["values"][0] < 1.0:
+        raise AssertionError(f"model_image_eval: inception score below 1: {out['inception_score']}")
+    return out
+
+
+def inception_twins(real, fake) -> dict:
+    """FID, IS, KID (10 subsets of 8) and MiFID on the first MODEL_CPU_IMAGES of each set
+    on the card (each through its own extractor) and on the CPU. The CPU side runs one
+    forward of the same seeded network per set, at the 2048 and ``logits_unbiased``
+    taps together, and feeds those features to the four CPU metrics (``feature`` the
+    identity); the bounds are the parity tests'."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        InceptionScore,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+    from torchmetrics_tpu_torch.image._inception_net import InceptionFeatureExtractor
+
+    k = MODEL_CPU_IMAGES
+    r, f = real[:k], fake[:k]
+    t0 = time.perf_counter()
+    ext = InceptionFeatureExtractor(feature=2048, device="cpu")
+    ext.net.features_list = ("2048", "logits_unbiased")
+    cpu = {"real": ext.net(ext._preprocess(r)), "fake": ext.net(ext._preprocess(f))}
+    cpu_forward_s = time.perf_counter() - t0
+
+    def run(device: str) -> tuple:
+        on_card = device != "cpu"
+        feature = {} if on_card else {"feature": lambda x: x}
+        fid = FrechetInceptionDistance(**(feature or {"feature": 2048}), num_features=2048, device=device)
+        inception = InceptionScore(**feature, splits=IS_SPLITS, device=device)
+        kid = KernelInceptionDistance(**feature, subsets=10, subset_size=k // 2, device=device)
+        mifid = MemorizationInformedFrechetInceptionDistance(**feature, device=device)
+        for metric in (fid, kid, mifid):
+            metric.update(r.to(device) if on_card else cpu["real"]["2048"], real=True)
+            metric.update(f.to(device) if on_card else cpu["fake"]["2048"], real=False)
+        inception.update(f.to(device) if on_card else cpu["fake"]["logits_unbiased"])
+        values = {}
+        for name, metric in (("fid", fid), ("inception_score", inception), ("kid", kid), ("mifid", mifid)):
+            np.random.seed(1)
+            result = metric.compute()
+            values[name] = [float(v) for v in result] if isinstance(result, tuple) else [float(result)]
+        states = {key: getattr(fid, key).cpu() for key in ("real_features_sum", "real_features_cov_sum",
+                                                            "fake_features_sum", "fake_features_cov_sum")}
+        return values, states
+
+    (card_values, card_states), (cpu_values, cpu_states) = run(MODEL_DEVICE), run("cpu")
+    gaps = {}
+    for key, want in cpu_states.items():
+        gaps[key] = float((card_states[key] - want).abs().max()) / float(want.abs().max())
+        if gaps[key] > MODEL_STATE_TOL:
+            raise AssertionError(f"model_image_eval: the card's FID {key} is {gaps[key]} of its largest magnitude"
+                                 " off the CPU")
+    for name, want in cpu_values.items():
+        # a (mean, std) pair: both within the bound of the mean (random weights make IS's
+        # splits agree to 1e-7, so its std is rounding on either side)
+        for i, (g, w) in enumerate(zip(card_values[name], want)):
+            gaps[f"{name}.{i}"] = abs(g - w) / max(abs(want[0]), 1e-30)
+            if gaps[f"{name}.{i}"] > MODEL_SCORE_RTOL:
+                raise AssertionError(f"model_image_eval: card {name} {card_values[name]} != CPU {want}")
+    return {"images": k, "values": card_values, "cpu_values": cpu_values, "gaps": gaps,
+            "cpu_forward_s": cpu_forward_s, "seconds": time.perf_counter() - t0}
+
+
+def lpips_family(paths: dict) -> dict:
+    """Each backbone's class over LPIPS_PAIRS pairs on the card, a profiled update, and
+    the first LPIPS_CPU_PAIRS pairs on the card against the CPU."""
+    import torch
+
+    from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
+
+    out = {}
+    for net in LPIPS_NETS:
+        metric = LearnedPerceptualImagePatchSimilarity(net_type=net, weights_path=paths[net], device=MODEL_DEVICE)
+        batches = [lpips_pairs(i) for i in range(LPIPS_PAIRS // LPIPS_BATCH)]
+        seconds = timed_updates(metric, batches)
+        value = float(metric.compute())
+        if not (0.0 < value < float("inf")) or int(metric.total) != LPIPS_PAIRS:
+            raise AssertionError(f"model_image_eval: LPIPS {net} is {value} over {int(metric.total)} pairs")
+        warm = sorted(seconds[1:])
+        record = {"value": value, "updates": len(seconds), "first_update_s": seconds[0],
+                  "ms_per_update_median": warm[len(warm) // 2] * 1e3,
+                  "pairs_per_s": LPIPS_BATCH * len(warm) / sum(warm)}
+        record["profile_update"] = model_kernel_profile(lambda: metric.update(*batches[0]))
+        del batches
+        img1, img2 = lpips_pairs(0, LPIPS_CPU_PAIRS)
+        twins = {}
+        for device in (MODEL_DEVICE, "cpu"):
+            twin = LearnedPerceptualImagePatchSimilarity(net_type=net, weights_path=paths[net], device=device)
+            twin.update(img1.to(device), img2.to(device))
+            twins[device] = float(twin.compute())
+        record["cpu_twin"] = {"pairs": LPIPS_CPU_PAIRS, **twins, "gap": _rel_gap(twins[MODEL_DEVICE], twins["cpu"])}
+        if record["cpu_twin"]["gap"] > LPIPS_TWIN_RTOL:
+            raise AssertionError(f"model_image_eval: LPIPS {net} on the card {twins[MODEL_DEVICE]} != CPU {twins['cpu']}")
+        out[net] = record
+        torch.cuda.empty_cache()
+    return out
+
+
+def ppl_run(root: str) -> dict:
+    """PerceptualPathLength with JAX's defaults on the card (the VGG backbone found through
+    ``$TORCHMETRICS_TPU_LPIPS_BACKBONES``), then PPL_CPU_SAMPLES samples on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+
+    from torchmetrics_tpu_torch.image import PerceptualPathLength
+
+    previous = os.environ.get("TORCHMETRICS_TPU_LPIPS_BACKBONES")
+    os.environ["TORCHMETRICS_TPU_LPIPS_BACKBONES"] = root
+    try:
+        metric = PerceptualPathLength(device=MODEL_DEVICE)
+        metric.update(generator=PPLGenerator(MODEL_DEVICE, seed=5))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, std, kept = metric.compute()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not (np.isfinite(float(mean)) and kept.numel() >= 0.95 * metric.num_samples):
+            raise AssertionError(f"model_image_eval: PPL mean {float(mean)} over {kept.numel()} kept samples")
+        twins = {}
+        for device in (MODEL_DEVICE, "cpu"):
+            twin = PerceptualPathLength(num_samples=PPL_CPU_SAMPLES, batch_size=PPL_CPU_SAMPLES, device=device)
+            twin.update(generator=PPLGenerator(device, seed=6))
+            twins[device] = [t.cpu() for t in twin.compute()]
+    finally:
+        if previous is None:
+            os.environ.pop("TORCHMETRICS_TPU_LPIPS_BACKBONES", None)
+        else:
+            os.environ["TORCHMETRICS_TPU_LPIPS_BACKBONES"] = previous
+    card, cpu = twins[MODEL_DEVICE], twins["cpu"]
+    if card[2].shape != cpu[2].shape:
+        raise AssertionError(f"model_image_eval: PPL kept {card[2].shape} on the card, {cpu[2].shape} on the CPU")
+    gap = max(float(((c - w).abs() / w.abs()).max()) for c, w in zip(card, cpu))
+    if gap > PPL_TWIN_RTOL:
+        raise AssertionError(f"model_image_eval: PPL on the card {card} != CPU {cpu}")
+    return {"samples": metric.num_samples, "batch": metric.batch_size, "epsilon": metric.epsilon,
+            "mean": float(mean), "std": float(std), "kept": int(kept.numel()), "compute_s": seconds,
+            "samples_per_s": metric.num_samples / seconds,
+            "cpu_twin": {"samples": PPL_CPU_SAMPLES, "card_mean": float(card[0]), "cpu_mean": float(cpu[0]),
+                         "gap": gap}}
+
+
+def model_image_eval_phase() -> dict:
+    """The model-based image metrics at published sizes on seeded random weights: FID-10k
+    at CIFAR-10's shape, IS, KID and MiFID, LPIPS on its three backbones at 256^2, and
+    perceptual path length with JAX's defaults; each against its CPU twin. No K1-K5
+    launch, and no cuDNN convolution or TF32 product in any profiled update."""
+    import shutil
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    root = model_image_root()
+    shutil.rmtree(root, ignore_errors=True)
+    kernels.reset_launch_counts()
+    record = {"phase": "model_image_eval"}
+    try:
+        t0 = time.perf_counter()
+        real, fake = cifar10_sets()
+        torch.cuda.synchronize()
+        record["data_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        record["inception"] = inception_family(real, fake)
+        record["inception_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        record["inception_cpu_twins"] = inception_twins(real.cpu(), fake.cpu())
+        record["inception_twins_s"] = time.perf_counter() - t0
+        del real, fake
+        torch.cuda.empty_cache()
+        files = lpips_backbone_files(root)
+        record["backbone_files_s"] = files["seconds"]
+        t0 = time.perf_counter()
+        record["lpips"] = lpips_family(files["paths"])
+        record["lpips_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        record["ppl"] = ppl_run(root)
+        record["ppl_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"model_image_eval: the model-based path launched a kernel: {launches}")
+    profiles = [record["inception"]["fid"]["profile_update"]] + [r["profile_update"] for r in record["lpips"].values()]
+    conv = sorted({name for p in profiles for name in p["conv_or_tf32_kernels"]})
+    if conv:
+        raise AssertionError(f"model_image_eval: a convolution reached cuDNN or a product took TF32: {conv}")
+    return {**record, "launches": launches,
+            "sizes": {"fid_images": FID10K_IMAGES, "fid_batch": FID10K_BATCH, "shape": CIFAR_SHAPE,
+                      "subset_images": SUBSET_IMAGES, "kid": [KID_SUBSETS, KID_SUBSET_SIZE],
+                      "lpips": [LPIPS_PAIRS, LPIPS_BATCH, LPIPS_SIZE], "ppl_latent": PPL_LATENT},
+            "cuts": {"weights": "seeded random at the published widths (no checkpoint in the repo)",
+                     "images": "synthesized from seeds at CIFAR-10's count and shape and at 256^2",
+                     "cpu_twin": f"{MODEL_CPU_IMAGES} + {MODEL_CPU_IMAGES} images, {LPIPS_CPU_PAIRS} pairs a net,"
+                                 f" {PPL_CPU_SAMPLES} PPL samples"}}
+
+
 def main() -> int:
     import torch
 
@@ -7666,7 +8144,8 @@ def main() -> int:
                                       ("--text-eval", text_eval_phase),
                                       ("--audio-eval", audio_eval_phase),
                                       ("--image-quality-eval", image_quality_eval_phase),
-                                      ("--detection-eval", detection_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--detection-eval", detection_eval_phase),
+                                      ("--model-image-eval", model_image_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -7766,7 +8245,7 @@ def main() -> int:
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
                      segmentation_eval_phase, pairwise_eval_phase, text_eval_phase, audio_eval_phase,
-                     image_quality_eval_phase, detection_eval_phase):
+                     image_quality_eval_phase, detection_eval_phase, model_image_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

@@ -3060,3 +3060,146 @@ def test_dnsmos_on_the_card_equals_the_cpu(card, tmp_path, monkeypatch):
             torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
     finally:
         dnsmos._load_model.cache_clear()
+
+
+# ------------------------------------------------------------ model-based image
+
+MODEL_CASES = ("inception", "alex", "vgg", "squeeze")
+
+
+def _model_case(case: str, device) -> tuple:
+    """The network of ``case`` (seeded random weights) on ``device`` and its CPU input:
+    the FID extractor at its 2048 and logits taps on 3 uint8 images of 64 x 80 (resized
+    to 299^2), or an LPIPS pyramid on 2 images of 3 x 96 x 112."""
+    from torchmetrics_tpu_torch.functional.image._lpips_backbones import LpipsPyramid
+    from torchmetrics_tpu_torch.image._inception_net import InceptionFeatureExtractor
+
+    g = torch.Generator().manual_seed(MODEL_CASES.index(case))
+    if case == "inception":
+        ext = InceptionFeatureExtractor(feature=2048, device=device)
+        ext.net.features_list = ("2048", "logits")
+        x = torch.randint(0, 256, (3, 3, 64, 80), generator=g, dtype=torch.uint8)
+        return (lambda imgs: ext.net(ext._preprocess(imgs))), x
+    net = LpipsPyramid(case).init_random(g).to(device)
+    return net, torch.rand(2, 3, 96, 112, generator=g) * 2 - 1
+
+
+def _model_kernel_names(cases: list) -> list:
+    """For each case, the device kernels of one forward on the card with cuDNN's and
+    cuBLAS's TF32 flags on: the fullest of three traces."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    result = []
+    for case in cases:
+        fn, x = _model_case(case, "cuda")
+        x = x.cuda()
+        fn(x)
+        torch.cuda.synchronize()
+        traces = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(x)
+                torch.cuda.synchronize()
+            traces.append([e.key for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA and e.count])
+        result.append(max(traces, key=len))
+    return result
+
+
+@pytest.fixture(scope="module")
+def model_kernel_names() -> dict:
+    """``_model_kernel_names`` of every case, traced in a new process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, sys; sys.path[:0] = sys.argv[1:3]; import test_torch_cuda as t; "
+            "print(json.dumps(t._model_kernel_names(json.loads(sys.argv[3]))))")
+    done = subprocess.run([sys.executable, "-c", code, here, os.path.dirname(here), json.dumps(list(MODEL_CASES))],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
+    return dict(zip(MODEL_CASES, json.loads(done.stdout.strip().splitlines()[-1])))
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_inception_and_lpips_convolutions_reach_no_cudnn_or_tf32_kernel(card, model_kernel_names, case):
+    """The FID Inception-v3's and each LPIPS backbone's convolutions run as im2col (none
+    for a 1x1 kernel) and full-float32 products, off cuDNN, with both TF32 flags on
+    (the products then multiply in float64), and the forward equals the CPU's within
+    1e-4 of each output's largest magnitude; no flag is written."""
+    names = model_kernel_names[case]
+    low = [n.lower() for n in names]
+    assert names and not [n for n in low if "tf32" in n or "cudnn" in n or "implicit_convolve" in n
+                          or any(m in n for m in ("fprop", "dgrad", "wgrad", "conv2d", "convolution"))], names
+    assert any("gemm" in n for n in low) and any("im2col" in n for n in low), names
+    fn, x = _model_case(case, card)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.allow_tf32, matmul.allow_tf32)
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, True
+        got = fn(x.to(card))
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = before
+    cpu_fn, _ = _model_case(case, "cpu")
+    want = cpu_fn(x)
+    pairs = zip(got.values(), want.values()) if isinstance(want, dict) else zip(got, want)
+    for g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_inception_features_and_lpips_on_the_card_equal_the_cpu(card, tmp_path):
+    """Every tap of the FID extractor (uint8 and ``normalize``) within 1e-4 of its largest
+    magnitude, and LPIPS of each backbone through the class within 1e-5 relative."""
+    from torchmetrics_tpu_torch.convert import convert_lpips_backbone
+    from torchmetrics_tpu_torch.functional.image._lpips_backbones import LpipsPyramid
+    from torchmetrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
+    from torchmetrics_tpu_torch.image._inception_net import InceptionFeatureExtractor
+
+    g = torch.Generator().manual_seed(8)
+    taps = ("64", "192", "768", "2048", "logits", "logits_unbiased")
+    for normalize, x in ((False, torch.randint(0, 256, (2, 3, 50, 41), generator=g, dtype=torch.uint8)),
+                         (True, torch.rand(2, 3, 299, 299, generator=g))):
+        out = {}
+        for device in (card, "cpu"):
+            ext = InceptionFeatureExtractor(feature=2048, normalize=normalize, device=device)
+            ext.net.features_list = taps
+            out[str(device)] = ext.net(ext._preprocess(x.to(device)))
+        for tap in taps:
+            want = out["cpu"][tap]
+            torch.testing.assert_close(out[str(card)][tap].cpu(), want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    img1, img2 = torch.rand(2, 3, 128, 128, generator=g) * 2 - 1, torch.rand(2, 3, 128, 128, generator=g) * 2 - 1
+    for seed, net in enumerate(("alex", "vgg", "squeeze")):
+        torch.save(LpipsPyramid(net).init_random(torch.Generator().manual_seed(seed)).state_dict(), tmp_path / "b.pth")
+        path = convert_lpips_backbone(str(tmp_path / "b.pth"), net, str(tmp_path / f"{net}.npz"))
+        values = []
+        for device in (card, "cpu"):
+            metric = LearnedPerceptualImagePatchSimilarity(net_type=net, weights_path=path, device=device)
+            metric.update(img1, img2)
+            assert metric.feature_fn.features[next(iter(metric.feature_fn.features))].weight.device.type == \
+                torch.device(device).type
+            values.append(float(metric.compute()))
+        assert abs(values[0] - values[1]) <= 1e-5 * abs(values[1]), (net, values)
+
+
+def test_an_fid_update_launches_no_custom_kernel(card):
+    """The Inception family's path runs no K1-K5: an FID update and ``compute`` on the
+    card count no launch and trace no kernel of theirs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.image import FrechetInceptionDistance
+
+    fid = FrechetInceptionDistance(feature=64, device=card)
+    imgs = torch.randint(0, 256, (4, 3, 32, 32), generator=torch.Generator().manual_seed(2), dtype=torch.uint8)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fid.update(imgs.to(card), real=True)
+        fid.update(imgs.flip(0).to(card), real=False)
+        value = fid.compute()
+        torch.cuda.synchronize()
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in names if any(k in n for k in ("confusion_matrix_", "curve_search", "curve_compare",
+                                                         "bincount_", "ssim_moments"))], names
+    assert torch.isfinite(value) and value.device.type == "cuda"

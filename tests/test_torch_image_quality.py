@@ -7,7 +7,7 @@ every reduction), VIF, D-lambda, D-s (with and without ``pan_lr``, at resolution
 panchromatic image against ``jax.image.resize`` at ratios 2 and 4, at non-integer
 ratios, upwards and along one axis; every validation message; each class over several
 batches (``merge_states`` of two halves, a JAX state dict loaded and updated further);
-the ``__all__`` lists; and the model-based names, which raise.
+the ``__all__`` lists, which equal JAX's with the model-based names ported.
 
 Tolerances: every score within 1e-5 plus 1e-6 of its value (as ``chip_smoke.py``'s
 image phases hold them); the resize within 1e-6 absolute of inputs in [0, 1]; the image
@@ -338,13 +338,20 @@ MODEL_BASED_FUNCTIONS = ("learned_perceptual_image_patch_similarity", "perceptua
 @pytest.mark.parametrize("module, name",
                          [(tc, n) for n in MODEL_BASED_CLASSES] + [(tf, n) for n in MODEL_BASED_FUNCTIONS])
 def test_a_model_based_name_raises_naming_its_roadmap_item(module, name):
-    with pytest.raises(NotImplementedError, match="model-based item of ROADMAP Queue 1"):
-        getattr(module, name)
+    # the model-based image names are ported: each is exported beside its JAX name, and
+    # only an unknown name raises
+    jax_module = jc if module is tc else jf
+    assert name in module.__all__ and name in jax_module.__all__
+    assert getattr(module, name).__name__ == getattr(jax_module, name).__name__
+    assert getattr(ttm if module is tc else tfunctional.image, name) is getattr(module, name)
+    with pytest.raises(AttributeError):
+        getattr(module, name + "Missing")
 
 
 def test_every_jax_name_but_the_model_based_ones_is_exported():
-    assert sorted(tc.__all__) == sorted(set(jc.__all__) - set(MODEL_BASED_CLASSES))
-    assert sorted(tf.__all__) == sorted(set(jf.__all__) - set(MODEL_BASED_FUNCTIONS))
+    # every JAX name is exported now, the model-based ones too
+    assert tc.__all__ == jc.__all__ and tf.__all__ == jf.__all__
+    assert set(MODEL_BASED_CLASSES) <= set(tc.__all__) and set(MODEL_BASED_FUNCTIONS) <= set(tf.__all__)
     assert set(tc.__all__) <= set(ttm.__all__) and set(tf.__all__) <= set(tfunctional.__all__)
     with pytest.raises(AttributeError):
         tc.NoSuchMetric  # noqa: B018

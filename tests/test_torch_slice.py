@@ -185,8 +185,14 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys, torchmetrics_tpu_torch, torchmetrics_tpu_torch.convert, torchmetrics_tpu_torch.ops,"
         " torchmetrics_tpu_torch.engine, torchmetrics_tpu_torch.obs, torchmetrics_tpu_torch.robust,"
-        " torchmetrics_tpu_torch.utils.fileio;"
+        " torchmetrics_tpu_torch.utils.fileio, torchmetrics_tpu_torch.convert.__main__,"
+        " torchmetrics_tpu_torch.functional.image._lpips_backbones, torchmetrics_tpu_torch.functional.image.lpips,"
+        " torchmetrics_tpu_torch.functional.image.perceptual_path_length, torchmetrics_tpu_torch.image.lpip,"
+        " torchmetrics_tpu_torch.image._inception_net, torchmetrics_tpu_torch.image.fid,"
+        " torchmetrics_tpu_torch.image.inception, torchmetrics_tpu_torch.image.kid,"
+        " torchmetrics_tpu_torch.image.mifid, torchmetrics_tpu_torch.image.perceptual_path_length;"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'flax' or m.startswith('flax.')"
         " or m == 'torchmetrics_tpu' or m.startswith('torchmetrics_tpu.'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -28,8 +28,9 @@ pairwise distances (``functional.pairwise``); the text domain's string and token
 metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity; not
 yet BERTScore and InfoLM); the audio domain (SNR, SI-SNR, C-SI-SNR, SDR, SI-SDR, SA-SDR,
 PIT, native STOI/ESTOI and SRMR, the gated PESQ, and DNSMOS on the port's ONNX executor,
-``convert.onnx_torch``); the model-free rest of the image domain (SAM, ERGAS, SCC, VIF,
-RASE, D-lambda, D-s, QNR, image gradients); detection (COCO mean average precision with
+``convert.onnx_torch``); the rest of the image domain (SAM, ERGAS, SCC, VIF, RASE,
+D-lambda, D-s, QNR, image gradients, and the model-based LPIPS, FID, IS, KID, MiFID and
+perceptual path length on full-float32 ``nn.Module`` networks); detection (COCO mean average precision with
 its greedy matcher batched on the device, IoU, GIoU, DIoU, CIoU, and panoptic quality
 counted on the bincount kernel); and the fleet plane (``fleet``, ``obs.fleet``) with the live
 introspection server (``obs.server``, ``python -m torchmetrics_tpu_torch.obs.serve``).

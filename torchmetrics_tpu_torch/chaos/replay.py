@@ -583,6 +583,25 @@ def replay(schedule: TrafficSchedule, config: Optional[ReplayConfig] = None) -> 
     compile-seconds deltas from the cost ledger, and the end-of-run health and
     tenant pages.
     """
+    from torchmetrics_tpu_torch.obs import cost as _cost
+    from torchmetrics_tpu_torch.obs import scope as _scope
+    from torchmetrics_tpu_torch.obs import values as _values
+
+    # a replay leaves the process as it found it: its value series, its captured
+    # variants' cost entries and its tenant, lease and checkpoint rows go when it
+    # ends. Left behind, they grew with every replay in one process, and the alert
+    # engine, the ``/metrics`` page and the scrapes of later replays read them all.
+    log, ledger = _values.get_log(), _cost.get_ledger()
+    series_before, cost_mark, registries = log.keys(), ledger.mark(), _scope.registries_snapshot()
+    try:
+        return _replay(schedule, config)
+    finally:
+        log.discard(log.keys() - series_before)
+        ledger.forget_since(cost_mark)
+        _scope.restore_registries(registries)
+
+
+def _replay(schedule: TrafficSchedule, config: Optional[ReplayConfig]) -> Dict[str, Any]:
     from unittest import mock
 
     import numpy as np

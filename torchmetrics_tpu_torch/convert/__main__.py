@@ -1,11 +1,14 @@
 """CLI for the checkpoint conversion kit — see the package docstring.
 
-The JAX package's subcommands and flags. ``onnx-flax`` writes the converted-directory
-format both packages read; ``inception``, ``lpips-backbone`` and ``hf-flax`` raise as
-their functions do until the model-based metrics are ported.
+The JAX package's subcommands and flags. ``onnx-flax``, ``inception`` and
+``lpips-backbone`` write the formats both packages read; ``hf-flax`` raises as its
+function does until the text and multimodal model-based metrics are ported.
 
 Examples::
 
+    python -m torchmetrics_tpu_torch.convert inception pt_inception-2015-12-05-6726825d.pth \
+        -o weights/inception.npz
+    python -m torchmetrics_tpu_torch.convert lpips-backbone vgg16-397923af.pth --net vgg -o weights/vgg.npz
     python -m torchmetrics_tpu_torch.convert onnx-flax DNSMOS/model_v8.onnx -o weights/dnsmos/model_v8
 """
 

@@ -13,9 +13,9 @@ concrete under ``jit``, so reshape targets and axes are known on the host; tenso
 runs in torch on the device of the inputs. An op outside the table raises and names it.
 
 Precision: ``Conv``, ``Gemm`` and ``MatMul`` compute in full float32 without writing a
-process-wide flag. A convolution is an explicit ``im2col`` (``F.pad`` then
-``F.unfold``) and one grouped product through ``_matmul_full_float32``, so it never
-reaches cuDNN, whose algorithms may take TF32 under the default
+process-wide flag. A convolution is ``utils.compute._conv2d_full_float32``: an
+explicit ``im2col`` (``F.pad`` then ``F.unfold``; none for a 1x1 kernel) and one
+grouped product through ``_matmul_full_float32``, so it never reaches cuDNN, whose algorithms may take TF32 under the default
 ``torch.backends.cudnn.allow_tf32``. As in JAX (64-bit types off), a float64 value on
 the device is float32.
 """
@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from torchmetrics_tpu_torch.convert.onnx_reader import parse_onnx
-from torchmetrics_tpu_torch.utils.compute import _matmul_full_float32
+from torchmetrics_tpu_torch.utils.compute import _conv2d_full_float32, _matmul_full_float32
 
 Tensor = torch.Tensor
 
@@ -136,17 +136,7 @@ def _conv(x: Tensor, w: Tensor, b: Optional[Tensor], attrs: Dict[str, Any]) -> T
     if rank == 1:
         x, w = x[:, :, None, :], w[:, :, None, :]
         strides, dilations, padding = [1, *strides], [1, *dilations], [(0, 0), *padding]
-    x = F.pad(x, (padding[1][0], padding[1][1], padding[0][0], padding[0][1]))
-    n, c, h, wd = x.shape
-    o, cg, kh, kw = w.shape
-    ho = (h - (kh - 1) * dilations[0] - 1) // strides[0] + 1
-    wo = (wd - (kw - 1) * dilations[1] - 1) // strides[1] + 1
-    cols = F.unfold(x, (kh, kw), dilation=tuple(dilations), stride=tuple(strides))  # [N, C*kh*kw, L]
-    cols = cols.reshape(n, group, cg * kh * kw, ho * wo)
-    out = _matmul_full_float32(w.reshape(group, o // group, cg * kh * kw).to(x.dtype), cols)
-    out = out.reshape(n, o, ho, wo)
-    if b is not None:
-        out = out + b.reshape(1, -1, 1, 1)
+    out = _conv2d_full_float32(x, w, b, strides, padding, dilations, group)
     return out[:, :, 0, :] if rank == 1 else out
 
 

@@ -2,62 +2,26 @@
 
 Counterpart of ``torchmetrics_tpu/functional/image/d_s.py``. The panchromatic image is
 degraded by a uniform filter and resized to the multispectral image's size as
-``jax.image.resize(..., method="bilinear")`` does: a triangle kernel widened by the
-scale when it shrinks (antialiased), each output's weights normalised. The separable
-weight matrices are built in numpy on the host, in float32 as JAX builds them, kept per
-shape, and applied as two full-float32 products (``utils/compute._matmul_full_float32``).
+``jax.image.resize(..., method="bilinear")`` does (``utils._resize_bilinear``).
 The per-band UQIs come from one UQI call with the bands folded into the batch.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from torchmetrics_tpu_torch.functional.image.uqi import _uqi_compute
 from torchmetrics_tpu_torch.functional.image.utils import (
     _as_jax_dtype,
     _dtype_name,
-    _on_device,
+    _resize_bilinear,
     _uniform_filter,
     reduce,
 )
-from torchmetrics_tpu_torch.utils.compute import _matmul_full_float32
 
 Tensor = torch.Tensor
-
-
-@lru_cache(maxsize=64)
-def _linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """``[in_size, out_size]`` float32 weights of ``jax.image.resize``'s linear method
-    along one axis (its ``compute_weight_mat`` with antialiasing and no translation)."""
-    f32 = np.float32
-    inv_scale = f32(1.0 / (out_size / in_size))
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
-    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
-    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
-    weights = np.where(
-        np.abs(total) > f32(1000.0 * float(np.finfo(np.float32).eps)),
-        weights / np.where(total != 0, total, f32(1.0)),
-        f32(0.0),
-    )
-    inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(in_size - 0.5))
-    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
-
-
-def _resize_bilinear(x: Tensor, height: int, width: int) -> Tensor:
-    """``jax.image.resize(x, (*x.shape[:-2], height, width), "bilinear")`` of ``[..., H, W]``."""
-    if x.shape[-1] != width:
-        x = _matmul_full_float32(x, _on_device(_linear_resize_weights, (x.shape[-1], width), x.device).to(x.dtype))
-    if x.shape[-2] != height:
-        rows = _on_device(_linear_resize_weights, (x.shape[-2], height), x.device).to(x.dtype)
-        x = _matmul_full_float32(rows.T, x)
-    return x
 
 
 def _spatial_distortion_index_update(

@@ -5,6 +5,9 @@ its convolutions for ``Precision.HIGHEST``, since reduced-precision passes shift
 SSIM-class scores by about 1e-4; on the card cuDNN may run float32 convolutions in
 TF32 (on by default), so ``_conv2d``/``_conv3d`` keep every convolution on PyTorch's
 native depthwise kernels, which have no TF32 path, and set no flag.
+``_resize_bilinear`` is ``jax.image.resize(..., "bilinear")``: a triangle kernel widened by
+the scale when it shrinks (antialiased), each output's weights normalised, built in
+float32 on the host as JAX builds them and applied as two full-float32 products.
 Padding follows ``jnp.pad``'s ``reflect`` and ``symmetric`` modes exactly, for pads
 of any size, by gathering with index maps that numpy builds. Windows and index maps
 are built once per shape and device and cached; callers never write to them.
@@ -18,6 +21,8 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from torchmetrics_tpu_torch.utils.compute import _matmul_full_float32
 
 Tensor = torch.Tensor
 
@@ -183,3 +188,33 @@ def _uniform_filter(x: Tensor, window_size: int) -> Tensor:
     channel = x.shape[1]
     kernel = torch.full((channel, 1, window_size, window_size), 1.0 / window_size**2, dtype=x.dtype, device=x.device)
     return _conv2d(x, kernel, groups=channel)
+
+
+@lru_cache(maxsize=64)
+def _linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """``[in_size, out_size]`` float32 weights of ``jax.image.resize``'s linear method
+    along one axis (its ``compute_weight_mat`` with antialiasing and no translation)."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    weights = np.where(
+        np.abs(total) > f32(1000.0 * float(np.finfo(np.float32).eps)),
+        weights / np.where(total != 0, total, f32(1.0)),
+        f32(0.0),
+    )
+    inside = (sample_f >= f32(-0.5)) & (sample_f <= f32(in_size - 0.5))
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
+
+
+def _resize_bilinear(x: Tensor, height: int, width: int) -> Tensor:
+    """``jax.image.resize(x, (*x.shape[:-2], height, width), "bilinear")`` of ``[..., H, W]``."""
+    if x.shape[-1] != width:
+        x = _matmul_full_float32(x, _on_device(_linear_resize_weights, (x.shape[-1], width), x.device).to(x.dtype))
+    if x.shape[-2] != height:
+        rows = _on_device(_linear_resize_weights, (x.shape[-2], height), x.device).to(x.dtype)
+        x = _matmul_full_float32(rows.T, x)
+    return x

@@ -1,16 +1,22 @@
 """Image metric classes of the port.
 
-Counterpart of ``torchmetrics_tpu/image/__init__.py``, less the model-based classes
-(LPIPS, FID, IS, KID, MiFID, perceptual path length), which come with the model-based
-item of ROADMAP Queue 1; asking for one raises.
+Counterpart of ``torchmetrics_tpu/image/__init__.py``, with the same ``__all__``: the
+model-based LPIPS, FID, IS, KID, MiFID and perceptual path length run their networks
+on the metric's device from locally provided weights (the Inception family also with
+seeded random weights, with a warning).
 """
 
-from torchmetrics_tpu_torch.functional.image import _MODEL_BASED, _model_based_missing
 from torchmetrics_tpu_torch.image.pansharpening import (
     QualityWithNoReference,
     SpatialDistortionIndex,
     SpectralDistortionIndex,
 )
+from torchmetrics_tpu_torch.image.fid import FrechetInceptionDistance
+from torchmetrics_tpu_torch.image.inception import InceptionScore
+from torchmetrics_tpu_torch.image.kid import KernelInceptionDistance
+from torchmetrics_tpu_torch.image.lpip import LearnedPerceptualImagePatchSimilarity
+from torchmetrics_tpu_torch.image.mifid import MemorizationInformedFrechetInceptionDistance
+from torchmetrics_tpu_torch.image.perceptual_path_length import PerceptualPathLength
 from torchmetrics_tpu_torch.image.psnr import PeakSignalNoiseRatio, PeakSignalNoiseRatioWithBlockedEffect
 from torchmetrics_tpu_torch.image.quality import (
     ErrorRelativeGlobalDimensionlessSynthesis,
@@ -28,14 +34,14 @@ from torchmetrics_tpu_torch.image.ssim import (
 )
 
 
-def __getattr__(name: str):
-    if name in _MODEL_BASED:
-        raise _model_based_missing(__name__, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "PerceptualPathLength",
+    "MemorizationInformedFrechetInceptionDistance",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "PeakSignalNoiseRatioWithBlockedEffect",

@@ -370,6 +370,15 @@ class CostLedger:
             "estimated_bytes": sum(e.bytes_accessed for e in selected if e.bytes_accessed is not None),
         }
 
+    def forget_since(self, mark: int) -> int:
+        """Drop the entries recorded at or after ``mark`` (a run's own variants, once
+        :meth:`since` has summed them); returns how many went."""
+        with self._lock:
+            kept = [e for e in self._entries if e.seq < mark]
+            dropped = len(self._entries) - len(kept)
+            self._entries = kept
+        return dropped
+
     def totals(self) -> Dict[str, Any]:
         """Whole-ledger rollup (entries, compile seconds, dispatch-weighted cost)."""
         entries = self.entries()

@@ -391,6 +391,42 @@ def reset() -> None:
     ENABLED = False
 
 
+def registries_snapshot() -> Dict[str, Any]:
+    """Copies of the process-wide tenant, migration, checkpoint, lease and fence
+    registries, and of the enabled flags, for :func:`restore_registries`."""
+    with _REGISTRY._lock:
+        rows = {tenant: dict(row) for tenant, row in _REGISTRY._rows.items()}
+    with _MIGRATION_LOCK:
+        migrations = {tenant: list(phases) for tenant, phases in _MIGRATIONS.items()}
+    with _CHECKPOINT_LOCK:
+        checkpoints = {tenant: dict(row) for tenant, row in _CHECKPOINTS.items()}
+    with _LEASE_LOCK:
+        leases = {tenant: dict(row) for tenant, row in _LEASES.items()}
+        fences = {epoch: dict(row) for epoch, row in _FENCES.items()}
+    return {"enabled": ENABLED, "track_threads": _TRACK_THREAD_TENANTS, "threads": dict(_THREAD_TENANTS),
+            "rows": rows, "migrations": migrations, "checkpoints": checkpoints, "leases": leases,
+            "fences": fences}
+
+
+def restore_registries(snapshot: Dict[str, Any]) -> None:
+    """Put the registries of :func:`registries_snapshot` back as they were: a
+    self-contained run (a chaos replay) leaves no tenant, lease or checkpoint row of
+    its own behind. The running totals behind the fence gauges stay."""
+    global ENABLED, _TRACK_THREAD_TENANTS
+    with _REGISTRY._lock:
+        _REGISTRY._rows = snapshot["rows"]
+    for lock, registry, key in ((_MIGRATION_LOCK, _MIGRATIONS, "migrations"),
+                                (_CHECKPOINT_LOCK, _CHECKPOINTS, "checkpoints"),
+                                (_LEASE_LOCK, _LEASES, "leases"), (_LEASE_LOCK, _FENCES, "fences")):
+        with lock:
+            registry.clear()
+            registry.update(snapshot[key])
+    _THREAD_TENANTS.clear()
+    _THREAD_TENANTS.update(snapshot["threads"])
+    _TRACK_THREAD_TENANTS = snapshot["track_threads"]
+    ENABLED = snapshot["enabled"]
+
+
 def current_tenant() -> Optional[str]:
     """The ambient (effective) tenant of the calling context, or ``None``."""
     return _TENANT.get()

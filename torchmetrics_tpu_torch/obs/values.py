@@ -168,6 +168,17 @@ class ValueLog:
             row["points"].append((int(step), float(wall), float(value)))
         return True
 
+    def keys(self) -> set:
+        """The ``(metric, inst, leaf, tenant)`` keys of every series."""
+        with self._lock:
+            return set(self._series)
+
+    def discard(self, keys: Any) -> None:
+        """Drop the series of ``keys`` (a run's own series, once it has ended)."""
+        with self._lock:
+            for key in keys:
+                self._series.pop(key, None)
+
     def series(self) -> List[Dict[str, Any]]:
         """Copies of every series (points as lists, safe to mutate/serialize)."""
         with self._lock:
