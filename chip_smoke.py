@@ -60,7 +60,8 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    ``ctr``) of ``MetricPipeline(fuse=8)`` with an alert engine (a non-finite and an
    out-of-bounds rule, evaluated at every commit) and ``CheckpointPolicy(every_batches=16,
    full_every=4, keep=4)``: µs per step with and without the policy and the engine,
-   in three alternating rounds; then the session migrated — the origin folds 48
+   in two alternating rounds (three before a cut that pays for ``model_text_eval``);
+   then the session migrated — the origin folds 48
    ImageNet / 6 CTR batches, holds 2 behind its cursor, drains and checkpoints with
    them as the tail — and restored in a spawned process on cuda:0 that replays the
    tail, folds the rest and computes; then the origin's epoch fenced, its next bundle
@@ -75,8 +76,9 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    ``FencedBundleError``, no alert fires on clean data and the NaN fires the non-finite
    rule with one flight dump.
 9. ``mux_eval``: the tenant multiplexer at W = 8 and 64 tenants of each grouped
-   collection, batches of 256 rows, max(3, 128 // W) rounds (128 tenant-updates a
-   pass at W = 8, 192 at W = 64): one ``TenantMultiplexer`` (one width bucket, one captured graph holding every
+   collection, batches of 256 rows, max(3, 64 // W) rounds (64 tenant-updates a
+   pass at W = 8, 192 at W = 64; 128 at W = 8 before a cut that pays for
+   ``model_text_eval``): one ``TenantMultiplexer`` (one width bucket, one captured graph holding every
    row's K1/K2/K3 launches, one replay per group) against W tenant sessions of
    ``MetricPipeline(fuse=1)``, both warmed up and fed a warm round before the clock,
    timed in turns (mux, baseline, baseline, mux). It prints µs per tenant-update of
@@ -300,16 +302,36 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    equals its CPU twin (16 + 16 images: FID states within 1e-4 of their largest
    magnitude, FID / IS / KID / MiFID within 1e-3 of the mean; 4 pairs a backbone:
    LPIPS within 1e-5 relative; 8 PPL samples within 1e-2 relative).
-25. ``image_restoration_eval``: a super-resolution validation pass at the size of the
+25. ``model_text_eval``: the model-based text and multimodal metrics at the published
+   widths on seeded random weights (no checkpoint is in the repo) and vocabularies
+   synthesized from a seed at the published sizes, each model written as a local
+   snapshot directory under ``build/model_text/`` (removed at the end) in a weight
+   format the port reads: BERTScore on ``roberta-large`` (24 x 1024, byte-level BPE of
+   50,265) over WMT14 newstest2014's 3,003 pairs as ``text_eval`` synthesizes them,
+   ``idf=True``, batches of 64; InfoLM on ``google/bert_uncased_L-2_H-128_A-2``
+   (WordPiece of 30,522) with JAX's defaults over the first 500 pairs; CLIPScore on
+   ``openai/clip-vit-large-patch14`` over 1,000 MS-COCO-shaped pairs (uint8 3 x 480 x
+   640, captions of 8-15 words, batches of 50); CLIP-IQA on
+   ``openai/clip-vit-base-patch32`` (converted to a flax ``.msgpack`` by
+   ``convert_hf_flax``) over 1,000 KonIQ-10k-shaped images (uint8 3 x 768 x 1024) with
+   all 16 prompt pairs, batches of 50. It prints each loop's sentences or images per
+   second, a profiled call's device ms by kind (products, softmax, LayerNorm, GELU,
+   gathers, elementwise), the host tokenizer's and the image processor's ms, and peak
+   memory. It fails unless no K1-K5 kernel launched, no profiled kernel is a cuDNN
+   convolution or a TF32 product, the values are finite and in range, and the card
+   equals its CPU twin on 8 pairs a text metric (BERTScore within 1e-5, InfoLM within
+   1e-5 relative) and 4 images a CLIP metric (CLIPScore within 1e-4, CLIP-IQA within
+   1e-5).
+26. ``image_restoration_eval``: a super-resolution validation pass at the size of the
    DIV2K validation set, 100 RGB images of 1356 x 2040, batch 4, 25 steps: SSIM,
    MS-SSIM, PSNR, UQI, sliding-window RMSE (window 8) and the total variation of the
    predictions. It requires 6 launches of the SSIM moments kernel per step (1 for
    SSIM, 5 for the MS-SSIM scales), then holds the card against the CPU on the first
    4 images with fresh metrics on both sides. It reports the kernel's device ms per
    warm step inside the loop (profile) beside its main-path shapes timed alone.
-26. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
+27. ``ssim_gradient``: ``structural_similarity_index_measure(...).backward()`` on one
    2 x 3 x 256 x 256 pair, on the card and on the CPU.
-27. ``obs_eval``: the robust and observability planes on the main path. With tracing,
+28. ``obs_eval``: the robust and observability planes on the main path. With tracing,
    lineage and the conservation auditor on: both grouped collections as
    ``MetricPipeline(fuse=8)`` tenant sessions with a checkpoint policy (64 ImageNet
    batches with one NaN batch quarantined, 8 CTR batches), the ImageNet session
@@ -330,7 +352,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    the metric ranges with every K1 and K2 launch inside one, the retried sync is
    bitwise the unguarded one after one retry on each rank, and the hung sync degrades
    on both ranks to their local values with ``aggregate()`` naming the missing rank.
-28. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
+29. ``fleet_eval``: the fleet plane and the live endpoints. Eight tenant sessions
    (``MetricPipeline(fuse=8)`` of the grouped ImageNet and CTR collections, four each)
    on two virtual hosts, six on host "0" and two CTR tenants on host "1", are fed
    round-robin with tracing, lineage and the auditor on, while an
@@ -356,7 +378,7 @@ Phases, each printing one JSON line (a failure raises and exits non-zero):
    controller's proposed ladder (1, 2, 4, 8, 16) with states bitwise those of the
    default ladder, and one ImageNet and one CTR session are timed with the plane on
    and off in turns (reported, not gated).
-29. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
+30. ``chaos_eval``: the chaos plane on the card. The seven scenarios of the JAX
    package's ``bench.py --chaos`` (default and skewed load with 8 tenants, 64 tenants
    multiplexed at ``mux_max_width=64``, rolling deploy, host crash, hung host, and a
    12-tenant flash crowd after its controller-off control arm) replay their seeded
@@ -447,7 +469,7 @@ included).
 
     python3 chip_smoke.py --retrieval-eval --wrappers-eval --clustering-eval --nominal-eval \
         --segmentation-eval --pairwise-eval --text-eval --audio-eval --image-quality-eval \
-        --detection-eval --model-image-eval
+        --detection-eval --model-image-eval --model-text-eval
 
 builds the kernels and prints only the line of each phase named (its checks
 included).
@@ -1654,7 +1676,9 @@ SESSION_CRASH_AT = {"imagenet": 75, "binary": 16}
 # the batch whose first score is NaN in the alert run
 SESSION_NAN_BATCH = {"imagenet": 30, "binary": 5}
 SESSION_TENANT = {"imagenet": "imagenet", "binary": "ctr"}
-SESSION_ROUNDS = 3
+# two alternating rounds of the three variants (three before a cut of script time that
+# pays for ``model_text_eval``; every round's checks kept)
+SESSION_ROUNDS = 2
 SESSION_VARIANTS = ("plain", "alerts", "checkpoint")
 # K1/K2/K3 launches per step of pipeline_eval's fuse=8 variant
 SESSION_LAUNCHES_PER_STEP = {"imagenet": {"confusion_matrix": 2, "binned_curve_counts": 1, "weighted_bincount": 1},
@@ -2076,7 +2100,9 @@ def session_run_with_nan(kind: str, metrics_fn, batches: list) -> dict:
 
 MUX_WIDTHS = (8, 64)
 MUX_BATCH = 256
-MUX_TENANT_UPDATES = 128
+# tenant-updates a timed pass at W = 8 (128 before a cut of script time that pays for
+# ``model_text_eval``); W = 64 takes its floor of 3 rounds either way
+MUX_TENANT_UPDATES = 64
 # timed passes of each side, in the order mux, baseline, baseline, mux
 MUX_PASSES = 2
 # the tenants the admission check holds to a small quota: one shed, one deferred
@@ -2445,7 +2471,7 @@ def mux_restore_worker(specs: list, queue) -> None:
 def mux_eval_phase() -> dict:
     """The tenant multiplexer at W = 8 and 64 tenants of each grouped collection.
 
-    For each (collection, W): W tenants fed 256-row batches for max(3, 128 // W) rounds,
+    For each (collection, W): W tenants fed 256-row batches for max(3, 64 // W) rounds,
     through one ``TenantMultiplexer`` (one captured graph for the width, one replay per
     group) and through W tenant sessions of ``MetricPipeline(fuse=1)`` (one replay per
     batch), each warmed up and fed a warm round before the clock, then timed in turns
@@ -7757,6 +7783,12 @@ def model_kernel_profile(fn, warm: bool = True) -> dict:
             return "products"
         if "pool" in low:
             return "pools"
+        if "softmax" in low:
+            return "softmax"
+        if "layer_norm" in low or "layernorm" in low:
+            return "layer_norm"
+        if "gelu" in low:
+            return "gelu"
         if "catarray" in low or "cat_" in low:
             return "concatenation"
         if any(m in low for m in ("index", "gather", "upsample")):
@@ -8067,6 +8099,508 @@ def model_image_eval_phase() -> dict:
                                  f" {PPL_CPU_SAMPLES} PPL samples"}}
 
 
+# --------------------------------------------------------------- model_text_eval
+
+# The model-based text and multimodal metrics at the published widths of their default
+# checkpoints, on seeded random weights (normal(0, 0.02), LayerNorm gains 1): no
+# checkpoint is in the repo. Each model is written as a local snapshot directory with a
+# vocabulary synthesized from a seed at the published size (byte-level BPE merges and
+# WordPiece pieces over the words of ``text_vocabulary``), read back by the entry points.
+HF_CONFIGS = {
+    "roberta-large": {
+        "model_type": "roberta", "vocab_size": 50265, "hidden_size": 1024, "num_hidden_layers": 24,
+        "num_attention_heads": 16, "intermediate_size": 4096, "max_position_embeddings": 514, "type_vocab_size": 1,
+        "layer_norm_eps": 1e-5, "hidden_act": "gelu", "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2,
+        "architectures": ["RobertaForMaskedLM"],
+    },
+    "google/bert_uncased_L-2_H-128_A-2": {
+        "model_type": "bert", "vocab_size": 30522, "hidden_size": 128, "num_hidden_layers": 2,
+        "num_attention_heads": 2, "intermediate_size": 512, "max_position_embeddings": 512, "type_vocab_size": 2,
+        "layer_norm_eps": 1e-12, "hidden_act": "gelu", "pad_token_id": 0, "architectures": ["BertForMaskedLM"],
+    },
+    "openai/clip-vit-large-patch14": {
+        "model_type": "clip", "projection_dim": 768, "architectures": ["CLIPModel"],
+        "text_config": {"vocab_size": 49408, "hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                        "num_attention_heads": 12, "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                        "layer_norm_eps": 1e-5, "bos_token_id": 0, "eos_token_id": 2, "pad_token_id": 1},
+        "vision_config": {"hidden_size": 1024, "intermediate_size": 4096, "num_hidden_layers": 24,
+                          "num_attention_heads": 16, "image_size": 224, "patch_size": 14, "num_channels": 3,
+                          "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5},
+    },
+    "openai/clip-vit-base-patch32": {
+        "model_type": "clip", "projection_dim": 512, "architectures": ["CLIPModel"],
+        "text_config": {"vocab_size": 49408, "hidden_size": 512, "intermediate_size": 2048, "num_hidden_layers": 12,
+                        "num_attention_heads": 8, "max_position_embeddings": 77, "hidden_act": "quick_gelu",
+                        "layer_norm_eps": 1e-5, "bos_token_id": 0, "eos_token_id": 2, "pad_token_id": 1},
+        "vision_config": {"hidden_size": 768, "intermediate_size": 3072, "num_hidden_layers": 12,
+                          "num_attention_heads": 12, "image_size": 224, "patch_size": 32, "num_channels": 3,
+                          "hidden_act": "quick_gelu", "layer_norm_eps": 1e-5},
+    },
+}
+# the masked LM of InfoLM is drawn at std 0.1, not 0.02: at 0.02 its temperature-0.25
+# distributions are near uniform (trained ones are peaked) and KL is a cancellation near
+# zero (~1e-3, where the card and the CPU differ by 3e-8 absolute, 2.5e-5 relative)
+INFOLM_INIT_STD = 0.1
+# BERTScore over WMT14 (all 3,003 pairs, batches of 64, JAX's default); InfoLM over the
+# first 500 pairs (a cut of script time); CLIPScore over 1,000 MS-COCO val2017-shaped
+# pairs and CLIP-IQA over 1,000 KonIQ-10k-shaped images (cuts of count), batches of 50
+BERTSCORE_BATCH = 64
+INFOLM_PAIRS = 500
+COCO_CAPTION_PAIRS, KONIQ_IMAGES, CLIP_BATCH = 1_000, 1_000, 50
+COCO_CAPTION_SHAPE, KONIQ_SHAPE = (3, 480, 640), (3, 768, 1024)
+CAPTION_WORDS = (8, 15)
+# CPU twins and their bounds (the parity tests'): 8 pairs a text metric, 4 images a CLIP metric
+TEXT_TWIN_PAIRS, CLIP_TWIN_IMAGES = 8, 4
+BERTSCORE_TWIN_ATOL, INFOLM_TWIN_RTOL, CLIPSCORE_TWIN_ATOL, CLIPIQA_TWIN_ATOL = 1e-5, 1e-5, 1e-4, 1e-5
+
+
+def model_text_root() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "model_text")
+
+
+def synth_bpe_vocab(words, size: int, clip: bool = False) -> tuple:
+    """A byte-level BPE vocabulary of ``size`` entries and its merges: the 256 byte
+    symbols (CLIP: and their ``</w>`` forms), then each word's left-to-right merge chain
+    (RoBERTa: of the word after a space, as it stands inside a sentence) in the words'
+    order (unused entries where the words run out), then the special tokens (RoBERTa's four first and ``<mask>`` last, CLIP's two
+    last)."""
+    from torchmetrics_tpu_torch.utils.hf.bpe import bytes_to_unicode
+
+    byte_map = bytes_to_unicode()
+    symbols = [byte_map[b] for b in range(256)]
+    specials = 5 if not clip else 2
+    vocab = {t: i for i, t in enumerate(symbols + ([t + "</w>" for t in symbols] if clip else []))}
+    budget = size - specials - len(vocab)
+    merges = []
+    for word in words:
+        for variant in ([word] if clip else [" " + word]):
+            chain = [byte_map[b] for b in variant.encode("utf-8")]
+            if clip:
+                chain[-1] += "</w>"
+            current = chain[0]
+            for nxt in chain[1:]:
+                if len(merges) >= budget:
+                    break
+                if current + nxt not in vocab:
+                    merges.append((current, nxt))
+                    vocab[current + nxt] = len(vocab)
+                current += nxt
+        if len(merges) >= budget:
+            break
+    # fewer words than the budget: entries no merge makes fill the rest
+    vocab.update({f"<unused{i}>": len(vocab) + i for i in range(budget - len(merges))})
+    if clip:
+        vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    else:
+        vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3, **{t: i + 4 for t, i in vocab.items()}}
+        vocab["<mask>"] = len(vocab)
+    if len(vocab) != size:
+        raise AssertionError(f"synthesized a BPE vocabulary of {len(vocab)} entries, not {size}")
+    return vocab, merges
+
+
+def synth_wordpiece_vocab(words, size: int) -> list:
+    """A WordPiece vocabulary of ``size`` entries in bert-base-uncased's layout: [PAD],
+    100 unused slots around [UNK], [CLS], [SEP], [MASK], the characters and their ``##``
+    forms, then whole words and ``##`` word endings."""
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    chars = sorted({c for w in words for c in w} | set("abcdefghijklmnopqrstuvwxyz0123456789") |
+                   {chr(c) for c in range(33, 127) if not chr(c).isalnum()})
+    tokens += chars + ["##" + c for c in chars if c.isalnum() or ord(c) > 127]
+    seen = set(tokens)
+    for word in words:
+        for piece in (word, "##" + word[len(word) // 2:]):
+            if len(tokens) < size and piece not in seen:
+                seen.add(piece)
+                tokens.append(piece)
+    tokens += [f"[unused{i}]" for i in range(99, 99 + size - len(tokens))]
+    return tokens
+
+
+def init_hf_weights(module, seed: int, std: float = 0.02) -> dict:
+    """``module``'s state dict drawn on the CPU from ``seed``: normal(0, ``std``) weights
+    (``transformers``' ``initializer_range``, 0.02), zero biases, LayerNorm gains 1, CLIP's
+    ``logit_scale`` log(1 / 0.07)."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, tensor in module.state_dict().items():
+        if name == "logit_scale":
+            state[name] = torch.full_like(tensor, math.log(1 / 0.07))
+        elif name.endswith("bias"):
+            state[name] = torch.zeros_like(tensor)
+        elif tensor.dim() == 1 and "norm" in name.rpartition(".")[0].rpartition(".")[2].lower():
+            state[name] = torch.ones_like(tensor)
+        else:
+            state[name] = torch.randn(tensor.shape, generator=g) * std
+    return state
+
+
+def write_hf_snapshot(out_dir: str, config: dict, seed: int, weights: str = "bin", words=None,
+                      init_std: float = 0.02) -> str:
+    """A local snapshot directory of ``config`` (``roberta``: ``RobertaModel``; ``bert``:
+    ``BertForMaskedLM``; ``clip``: ``CLIPModel``) on seeded random weights, written as
+    ``pytorch_model.bin`` or ``model.safetensors``, with its tokenizer files and (CLIP)
+    ``preprocessor_config.json``. ``words`` seeds the vocabulary (``text_vocabulary``'s
+    by default); ``init_std`` is the weights' standard deviation."""
+    import torch
+
+    from torchmetrics_tpu_torch.utils.hf.clip import CLIPModel
+    from torchmetrics_tpu_torch.utils.hf.encoders import MaskedLM, TransformerEncoder
+    from torchmetrics_tpu_torch.utils.hf.snapshot import write_safetensors
+
+    os.makedirs(out_dir, exist_ok=True)
+    words = list(text_vocabulary()[0]) if words is None else list(words)
+    kind = config["model_type"]
+    if kind == "roberta":
+        vocab, merges = synth_bpe_vocab(words, config["vocab_size"])
+        tokenizer = {"tokenizer_class": "RobertaTokenizer", "model_max_length": config["max_position_embeddings"] - 2}
+        module = TransformerEncoder(config)
+    elif kind == "clip":
+        vocab, merges = synth_bpe_vocab(words, config["text_config"]["vocab_size"], clip=True)
+        tokenizer = {"tokenizer_class": "CLIPTokenizer", "model_max_length": 77}
+        module = CLIPModel(config)
+        size = config["vision_config"]["image_size"]
+        with open(os.path.join(out_dir, "preprocessor_config.json"), "w") as fh:
+            json.dump({"image_processor_type": "CLIPImageProcessor", "do_resize": True, "size": {"shortest_edge": size},
+                       "resample": 3, "do_center_crop": True, "crop_size": {"height": size, "width": size},
+                       "do_rescale": True, "rescale_factor": 1 / 255, "do_normalize": True,
+                       "image_mean": [0.48145466, 0.4578275, 0.40821073],
+                       "image_std": [0.26862954, 0.26130258, 0.27577711], "do_convert_rgb": True}, fh)
+    else:
+        tokens = synth_wordpiece_vocab(words, config["vocab_size"])
+        with open(os.path.join(out_dir, "vocab.txt"), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(tokens) + "\n")
+        tokenizer = {"tokenizer_class": "BertTokenizer", "do_lower_case": True,
+                     "model_max_length": config["max_position_embeddings"]}
+        module = MaskedLM(config)
+    if kind != "bert":
+        with open(os.path.join(out_dir, "vocab.json"), "w", encoding="utf-8") as fh:
+            json.dump(vocab, fh, ensure_ascii=False)
+        with open(os.path.join(out_dir, "merges.txt"), "w", encoding="utf-8") as fh:
+            fh.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    with open(os.path.join(out_dir, "tokenizer_config.json"), "w") as fh:
+        json.dump(tokenizer, fh)
+    with open(os.path.join(out_dir, "config.json"), "w") as fh:
+        json.dump(config, fh, indent=2)
+    state = init_hf_weights(module, seed, init_std)
+    if weights == "safetensors":
+        write_safetensors(os.path.join(out_dir, "model.safetensors"), state)
+    else:
+        torch.save(state, os.path.join(out_dir, "pytorch_model.bin"))
+    return out_dir
+
+
+def model_text_snapshots(root: str) -> dict:
+    """The four snapshot directories: roberta-large as ``pytorch_model.bin``, the BERT
+    masked LM as ``pytorch_model.bin`` (drawn at INFOLM_INIT_STD), CLIP ViT-L/14 as ``model.safetensors``, CLIP
+    ViT-B/32 written as ``pytorch_model.bin`` and converted by ``convert_hf_flax`` into
+    the flax directory it is read from; the seconds each took."""
+    from torchmetrics_tpu_torch.convert import convert_hf_flax
+
+    paths, seconds = {}, {}
+    for i, (name, fmt) in enumerate((("roberta-large", "bin"), ("google/bert_uncased_L-2_H-128_A-2", "bin"),
+                                     ("openai/clip-vit-large-patch14", "safetensors"),
+                                     ("openai/clip-vit-base-patch32", "bin"))):
+        t0 = time.perf_counter()
+        out = write_hf_snapshot(os.path.join(root, name.replace("/", "--")), HF_CONFIGS[name], seed=900 + i,
+                                weights=fmt, init_std=INFOLM_INIT_STD if HF_CONFIGS[name]["model_type"] == "bert" else 0.02)
+        if name == "openai/clip-vit-base-patch32":
+            out = convert_hf_flax(out, out + "-flax", model_class="FlaxCLIPModel")
+        paths[name], seconds[name] = out, time.perf_counter() - t0
+    return {"paths": paths, "seconds": seconds}
+
+
+def coco_caption_batch(index: int, n: int = 0, device: str = "") -> tuple:
+    """Batch ``index`` of the CLIPScore pairs: uint8 images of COCO_CAPTION_SHAPE (smooth
+    fields and noise, made on ``device``) and captions of 8-15 words."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    device, n = device or MODEL_DEVICE, n or CLIP_BATCH
+    g = torch.Generator(device=device).manual_seed(1200 + index)
+    _, h, w = COCO_CAPTION_SHAPE
+    base = F.interpolate(torch.rand(n, 3, h // 16, w // 16, generator=g, device=device), size=(h, w), mode="bilinear")
+    noise = torch.rand(n, 3, h, w, generator=g, device=device) - 0.5
+    images = ((base + 0.15 * noise).clamp(0, 1) * 255).to(torch.uint8)
+    rng = np.random.RandomState(1300 + index)
+    captions = [text_sentence(rng, text_draw(rng, rng.randint(CAPTION_WORDS[0], CAPTION_WORDS[1] + 1)))
+                for _ in range(n)]
+    return images, captions
+
+
+def koniq_batch(index: int, n: int = 0, device: str = "") -> "torch.Tensor":
+    """Batch ``index`` of the CLIP-IQA images: uint8 KONIQ_SHAPE, a smooth field per image
+    at a seeded contrast with noise, made on ``device``."""
+    import torch
+    import torch.nn.functional as F
+
+    device, n = device or MODEL_DEVICE, n or CLIP_BATCH
+    g = torch.Generator(device=device).manual_seed(1400 + index)
+    _, h, w = KONIQ_SHAPE
+    base = F.interpolate(torch.rand(n, 3, h // 32, w // 32, generator=g, device=device), size=(h, w), mode="bilinear")
+    contrast = torch.rand(n, 1, 1, 1, generator=g, device=device) * 1.5 + 0.25
+    noise = torch.rand(n, 3, h, w, generator=g, device=device) - 0.5
+    return (((base - 0.5) * contrast + 0.5 + 0.2 * noise).clamp(0, 1) * 255).to(torch.uint8)
+
+
+def _max_gap(got, want) -> float:
+    import torch
+
+    if isinstance(want, dict):
+        return max(_max_gap(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return max(_max_gap(a, b) for a, b in zip(got, want))
+    return float((torch.as_tensor(got).cpu().double() - torch.as_tensor(want).cpu().double()).abs().max())
+
+
+def _rel_max_gap(got, want) -> float:
+    import torch
+
+    got, want = torch.as_tensor(got).cpu().double(), torch.as_tensor(want).cpu().double()
+    return float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def _peak_mb(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def bertscore_loop(path: str) -> dict:
+    """BERTScore over WMT14 on the card, a profiled call on one batch, and the CPU twin."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.functional.text import bert_score
+    from torchmetrics_tpu_torch.text import BERTScore
+
+    batches = wmt14_batches()
+    hyps = [h for b in batches for h in b[0]]
+    refs = [r[0] for b in batches for r in b[1]]
+    metric = BERTScore(model_name_or_path=path, idf=True, batch_size=BERTSCORE_BATCH, device=MODEL_DEVICE)
+    t0 = time.perf_counter()
+    for start in range(0, len(hyps), MT_BATCH):
+        metric.update(hyps[start:start + MT_BATCH], refs[start:start + MT_BATCH])
+    update_s = time.perf_counter() - t0
+    score, compute_s, peak_mb = _peak_mb(metric.compute)
+    f1 = score["f1"].cpu().numpy()
+    if f1.shape != (len(hyps),) or not np.isfinite(f1).all() or not (np.abs(f1) <= 1.0 + 1e-6).all():
+        raise AssertionError(f"model_text_eval: BERTScore F1 of shape {f1.shape}, range [{f1.min()}, {f1.max()}]")
+    tokenizer = metric.user_tokenizer
+    t0 = time.perf_counter()
+    tokenizer(hyps[:BERTSCORE_BATCH], padding=True, truncation=True, max_length=metric.max_length)
+    tokenizer_ms = (time.perf_counter() - t0) * 1e3  # warm: the words' BPE is cached
+    batch = (hyps[:BERTSCORE_BATCH], refs[:BERTSCORE_BATCH])
+    profile = model_kernel_profile(lambda: bert_score(*batch, model_name_or_path=path, idf=True, device=MODEL_DEVICE))
+    twins = {d: bert_score(hyps[:TEXT_TWIN_PAIRS], refs[:TEXT_TWIN_PAIRS], model_name_or_path=path, idf=True, device=d)
+             for d in (MODEL_DEVICE, "cpu")}
+    gap = _max_gap({k: twins[MODEL_DEVICE][k] for k in ("precision", "recall", "f1")},
+                   {k: twins["cpu"][k] for k in ("precision", "recall", "f1")})
+    if gap > BERTSCORE_TWIN_ATOL:
+        raise AssertionError(f"model_text_eval: BERTScore on the card is {gap} off the CPU")
+    lengths = metric.preds_attention_mask[0].sum(-1).float()
+    return {"pairs": len(hyps), "update_s": update_s, "compute_s": compute_s,
+            "sentences_per_s": 2 * len(hyps) / (update_s + compute_s), "f1_mean": float(f1.mean()),
+            "tokens_per_sentence_first_batch": float(lengths.mean()), "peak_compute_mb": peak_mb,
+            "host_tokenizer_ms_per_batch": tokenizer_ms, "profile_call": profile,
+            "cpu_twin": {"pairs": TEXT_TWIN_PAIRS, "max_gap": gap}}
+
+
+def infolm_loop(path: str) -> dict:
+    """InfoLM with JAX's defaults over the first INFOLM_PAIRS WMT14 pairs on the card, a
+    profiled functional call on the twin's pairs, and the CPU twin."""
+    import numpy as np
+
+    from torchmetrics_tpu_torch.functional.text import infolm
+    from torchmetrics_tpu_torch.text import InfoLM
+
+    batches = wmt14_batches()
+    hyps = [h for b in batches for h in b[0]][:INFOLM_PAIRS]
+    refs = [r[0] for b in batches for r in b[1]][:INFOLM_PAIRS]
+    metric = InfoLM(path, idf=True, verbose=False, return_sentence_level_score=True, device=MODEL_DEVICE)
+    t0 = time.perf_counter()
+    for start in range(0, len(hyps), BERTSCORE_BATCH):
+        metric.update(hyps[start:start + BERTSCORE_BATCH], refs[start:start + BERTSCORE_BATCH])
+    update_s = time.perf_counter() - t0
+    (mean, per_sentence), compute_s, peak_mb = _peak_mb(metric.compute)
+    values = per_sentence.cpu().numpy()
+    if values.shape != (len(hyps),) or not np.isfinite(values).all():
+        raise AssertionError(f"model_text_eval: InfoLM scores of shape {values.shape}, finite {np.isfinite(values).all()}")
+    def twin(device):
+        return infolm(hyps[:TEXT_TWIN_PAIRS], refs[:TEXT_TWIN_PAIRS], path, idf=True, verbose=False,
+                      return_sentence_level_score=True, device=device)[1]
+
+    profile = model_kernel_profile(lambda: twin(MODEL_DEVICE))
+    gap = _rel_max_gap(twin(MODEL_DEVICE), twin("cpu"))
+    if gap > INFOLM_TWIN_RTOL:
+        raise AssertionError(f"model_text_eval: InfoLM on the card is {gap} relative off the CPU")
+    return {"pairs": len(hyps), "update_s": update_s, "compute_s": compute_s,
+            "sentences_per_s": 2 * len(hyps) / (update_s + compute_s), "mean": float(mean),
+            "max_length": metric.max_length, "peak_compute_mb": peak_mb, "profile_twin_call": profile,
+            "cpu_twin": {"pairs": TEXT_TWIN_PAIRS, "max_rel_gap": gap}}
+
+
+def clip_processor_ms(path: str, images) -> dict:
+    """CUDA-event ms of the image processor (the PIL-exact resize, crop, rescale and
+    normalisation) on one batch, and host ms of the tokenizer on its captions."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _get_clip_model_and_processor
+
+    _, processor = _get_clip_model_and_processor(path, MODEL_DEVICE)
+    processor.image_processor(list(images))  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    processor.image_processor(list(images))
+    end.record()
+    end.synchronize()
+    return {"image_processor_ms": start.elapsed_time(end)}
+
+
+def clipscore_loop(path: str) -> dict:
+    """CLIPScore over COCO_CAPTION_PAIRS pairs on the card, a profiled update, and the
+    CPU twin on CLIP_TWIN_IMAGES pairs."""
+    import math
+
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _clip_score_update, _get_clip_model_and_processor
+    from torchmetrics_tpu_torch.multimodal import CLIPScore
+
+    metric = CLIPScore(model_name_or_path=path, device=MODEL_DEVICE)
+    seconds = []
+    for i in range(COCO_CAPTION_PAIRS // CLIP_BATCH):
+        images, captions = coco_caption_batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(images, captions)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    value = float(metric.compute())
+    before_clamp = float(metric.score) / COCO_CAPTION_PAIRS
+    if not (math.isfinite(value) and 0.0 <= value <= 100.0 and -100.0 <= before_clamp <= 100.0
+            and abs(value - max(before_clamp, 0.0)) <= 1e-5 * max(1.0, abs(before_clamp))) \
+            or int(metric.n_samples) != COCO_CAPTION_PAIRS:
+        raise AssertionError(f"model_text_eval: CLIPScore {value} over {int(metric.n_samples)} pairs")
+    images, captions = coco_caption_batch(0)
+    profile = model_kernel_profile(lambda: metric.update(images, captions))
+    _, _, peak_mb = _peak_mb(lambda: metric.update(images, captions))
+    t0 = time.perf_counter()
+    metric.processor.tokenizer(captions, padding=True)
+    tokenizer_ms = (time.perf_counter() - t0) * 1e3
+    parts = clip_processor_ms(path, images)
+    # per-sample scores before the mean and its clamp at 0 (random weights score below 0)
+    twins = {d: _clip_score_update([i.to(d) for i in images[:CLIP_TWIN_IMAGES]], captions[:CLIP_TWIN_IMAGES],
+                                   *_get_clip_model_and_processor(path, d))[0] for d in (MODEL_DEVICE, "cpu")}
+    gap = _max_gap(twins[MODEL_DEVICE], twins["cpu"])
+    if gap > CLIPSCORE_TWIN_ATOL:
+        raise AssertionError(f"model_text_eval: CLIPScore on the card is {gap} off the CPU")
+    warm = sorted(seconds[1:])
+    return {"pairs": COCO_CAPTION_PAIRS, "value": value, "mean_before_clamp": before_clamp,
+            "first_update_s": seconds[0],
+            "ms_per_update_median": warm[len(warm) // 2] * 1e3, "images_per_s": CLIP_BATCH * len(warm) / sum(warm),
+            "peak_update_mb": peak_mb, "host_tokenizer_ms_per_batch": tokenizer_ms, **parts,
+            "profile_update": profile, "cpu_twin": {"images": CLIP_TWIN_IMAGES, "max_gap": gap}}
+
+
+def clipiqa_loop(path: str) -> dict:
+    """CLIP-IQA with all 16 prompt pairs over KONIQ_IMAGES images on the card, a profiled
+    update, and the CPU twin on CLIP_TWIN_IMAGES images."""
+    import torch
+
+    from torchmetrics_tpu_torch.functional.multimodal import clip_image_quality_assessment
+    from torchmetrics_tpu_torch.functional.multimodal.clip_iqa import _PROMPTS
+    from torchmetrics_tpu_torch.multimodal import CLIPImageQualityAssessment
+
+    prompts = tuple(_PROMPTS)
+    metric = CLIPImageQualityAssessment(path, data_range=255.0, prompts=prompts, device=MODEL_DEVICE)
+    seconds = []
+    for i in range(KONIQ_IMAGES // CLIP_BATCH):
+        images = koniq_batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(images)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    out = metric.compute()
+    probs = torch.stack([out[p] for p in prompts]).cpu()
+    if probs.shape != (len(prompts), KONIQ_IMAGES) or not bool(((probs >= 0) & (probs <= 1)).all()):
+        raise AssertionError(f"model_text_eval: CLIP-IQA probabilities of shape {tuple(probs.shape)} out of [0, 1]")
+    images = koniq_batch(0)
+    profile = model_kernel_profile(lambda: metric.update(images))
+    _, _, peak_mb = _peak_mb(lambda: metric.update(images))
+    parts = clip_processor_ms(path, images)
+    twins = {d: clip_image_quality_assessment(images[:CLIP_TWIN_IMAGES].to(d), path, 255.0, prompts, device=d)
+             for d in (MODEL_DEVICE, "cpu")}
+    gap = _max_gap(twins[MODEL_DEVICE], twins["cpu"])
+    if gap > CLIPIQA_TWIN_ATOL:
+        raise AssertionError(f"model_text_eval: CLIP-IQA on the card is {gap} off the CPU")
+    warm = sorted(seconds[1:])
+    return {"images": KONIQ_IMAGES, "prompts": len(prompts), "quality_mean": float(probs[0].mean()),
+            "first_update_s": seconds[0], "ms_per_update_median": warm[len(warm) // 2] * 1e3,
+            "images_per_s": CLIP_BATCH * len(warm) / sum(warm), "peak_update_mb": peak_mb, **parts,
+            "profile_update": profile, "cpu_twin": {"images": CLIP_TWIN_IMAGES, "max_gap": gap}}
+
+
+def model_text_eval_phase() -> dict:
+    """BERTScore, InfoLM, CLIPScore and CLIP-IQA at the published widths on seeded random
+    weights, each against its CPU twin. No K1-K5 launch, and no cuDNN convolution or
+    TF32 product in any profiled call."""
+    import shutil
+
+    import torch
+
+    from torchmetrics_tpu_torch.ops import kernels
+
+    root = model_text_root()
+    shutil.rmtree(root, ignore_errors=True)
+    record = {"phase": "model_text_eval"}
+    try:
+        t0 = time.perf_counter()
+        snapshots = model_text_snapshots(root)
+        record["snapshot_s"] = {"total": time.perf_counter() - t0, **snapshots["seconds"]}
+        kernels.reset_launch_counts()
+        loops = (("bertscore", bertscore_loop, "roberta-large"),
+                 ("infolm", infolm_loop, "google/bert_uncased_L-2_H-128_A-2"),
+                 ("clipscore", clipscore_loop, "openai/clip-vit-large-patch14"),
+                 ("clip_iqa", clipiqa_loop, "openai/clip-vit-base-patch32"))
+        for name, loop, model in loops:
+            t0 = time.perf_counter()
+            record[name] = {"model": model, **loop(snapshots["paths"][model])}
+            record[name]["loop_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(kernels.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"model_text_eval: the model-based path launched a kernel: {launches}")
+    profiles = [record["bertscore"]["profile_call"], record["infolm"]["profile_twin_call"],
+                record["clipscore"]["profile_update"], record["clip_iqa"]["profile_update"]]
+    conv = sorted({name for p in profiles for name in p["conv_or_tf32_kernels"]})
+    if conv:
+        raise AssertionError(f"model_text_eval: a kernel ran on cuDNN or a product took TF32: {conv}")
+    return {**record, "launches": launches,
+            "sizes": {"wmt14_pairs": WMT_SEGMENTS, "bertscore_batch": BERTSCORE_BATCH, "infolm_pairs": INFOLM_PAIRS,
+                      "coco_pairs": COCO_CAPTION_PAIRS, "coco_shape": COCO_CAPTION_SHAPE,
+                      "koniq_images": KONIQ_IMAGES, "koniq_shape": KONIQ_SHAPE, "clip_batch": CLIP_BATCH},
+            "cuts": {"weights": "seeded random at the published widths (no checkpoint in the repo)",
+                     "vocabularies": "synthesized from a seed at the published sizes",
+                     "data": "synthesized from seeds at WMT14's, MS-COCO's and KonIQ-10k's shapes",
+                     "infolm": f"the first {INFOLM_PAIRS} of 3,003 pairs",
+                     "clip": f"{COCO_CAPTION_PAIRS} of 5,000 COCO pairs, {KONIQ_IMAGES} of 10,073 KonIQ images",
+                     "cpu_twin": f"{TEXT_TWIN_PAIRS} pairs a text metric, {CLIP_TWIN_IMAGES} images a CLIP metric"}}
+
+
 def main() -> int:
     import torch
 
@@ -8145,7 +8679,8 @@ def main() -> int:
                                       ("--audio-eval", audio_eval_phase),
                                       ("--image-quality-eval", image_quality_eval_phase),
                                       ("--detection-eval", detection_eval_phase),
-                                      ("--model-image-eval", model_image_eval_phase)) if flag in sys.argv[1:]]
+                                      ("--model-image-eval", model_image_eval_phase),
+                                      ("--model-text-eval", model_text_eval_phase)) if flag in sys.argv[1:]]
     for phase_fn in only:
         t0 = time.perf_counter()
         emit({**phase_fn(), "card": smi, "root": os.path.dirname(os.path.abspath(__file__)),
@@ -8245,7 +8780,8 @@ def main() -> int:
     emit({**retrieval, "card": smi, "phase_wall_s": time.perf_counter() - t0})
     for phase_fn in (retrieval_eval_phase, wrappers_eval_phase, clustering_eval_phase, nominal_eval_phase,
                      segmentation_eval_phase, pairwise_eval_phase, text_eval_phase, audio_eval_phase,
-                     image_quality_eval_phase, detection_eval_phase, model_image_eval_phase):
+                     image_quality_eval_phase, detection_eval_phase, model_image_eval_phase,
+                     model_text_eval_phase):
         t0 = time.perf_counter()
         record = phase_fn()
         phases.append(record)

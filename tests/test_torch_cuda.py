@@ -3203,3 +3203,112 @@ def test_an_fid_update_launches_no_custom_kernel(card):
     assert not [n for n in names if any(k in n for k in ("confusion_matrix_", "curve_search", "curve_compare",
                                                          "bincount_", "ssim_moments"))], names
     assert torch.isfinite(value) and value.device.type == "cuda"
+
+
+# ------------------------------------------- the model-based text and multimodal metrics
+
+
+def _tiny_hf_config(name: str) -> dict:
+    """``chip_smoke.py``'s published configuration of ``name`` cut to 2 layers at width 32."""
+    import chip_smoke
+
+    config = json.loads(json.dumps(chip_smoke.HF_CONFIGS[name]))
+    small = {"hidden_size": 32, "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 48}
+    if config["model_type"] == "clip":
+        config["text_config"].update(small, vocab_size=700)
+        config["vision_config"].update(small, image_size=32, patch_size=8)
+        config["projection_dim"] = 16
+    else:
+        config.update(small, vocab_size=700, max_position_embeddings=66)
+    return config
+
+
+@pytest.fixture(scope="module")
+def hf_tiny(tmp_path_factory) -> dict:
+    """Tiny snapshots of the four default models, written by ``chip_smoke.py`` (no
+    ``transformers`` needed); CLIP ViT-B/32's converted to flax's msgpack."""
+    import chip_smoke
+
+    from torchmetrics_tpu_torch.convert import convert_hf_flax
+
+    root = tmp_path_factory.mktemp("hf")
+    words = list(chip_smoke.text_vocabulary()[0][:400])
+    out = {}
+    for i, name in enumerate(("roberta-large", "google/bert_uncased_L-2_H-128_A-2", "openai/clip-vit-large-patch14",
+                              "openai/clip-vit-base-patch32")):
+        # the masked LM wide enough that its distributions are peaked (see chip_smoke.INFOLM_INIT_STD)
+        d = chip_smoke.write_hf_snapshot(str(root / str(i)), _tiny_hf_config(name), seed=i, words=words,
+                                         weights="safetensors" if i == 2 else "bin", init_std=0.2 if i == 1 else 0.02)
+        out[name] = convert_hf_flax(d, d + "-flax", model_class="FlaxCLIPModel") if i == 3 else d
+    return out
+
+
+TEXT_PAIRS = (["the cat sat on the mat", "hello there, my friend", "a b c d e f g", "Über café"],
+              ["a cat sat on a mat", "hello there good friend", "a b c", "café über"])
+
+
+def test_bertscore_and_infolm_on_the_card_equal_the_cpu(card, hf_tiny):
+    """BERTScore (``idf``) within 1e-5, InfoLM's sentence scores within 1e-5 relative."""
+    from torchmetrics_tpu_torch.functional.text import bert_score, infolm
+
+    scores = [bert_score(*TEXT_PAIRS, model_name_or_path=hf_tiny["roberta-large"], idf=True, device=d)
+              for d in (card, "cpu")]
+    for key in ("precision", "recall", "f1"):
+        assert scores[0][key].device.type == "cuda"
+        torch.testing.assert_close(scores[0][key].cpu(), scores[1][key], rtol=0, atol=1e-5)
+    values = [infolm(*TEXT_PAIRS, hf_tiny["google/bert_uncased_L-2_H-128_A-2"], verbose=False,
+                     return_sentence_level_score=True, device=d)[1] for d in (card, "cpu")]
+    torch.testing.assert_close(values[0].cpu(), values[1], rtol=1e-5, atol=1e-8)
+
+
+def test_clip_score_and_clip_iqa_on_the_card_equal_the_cpu(card, hf_tiny):
+    """CLIPScore within 1e-4 (x100 scale), CLIP-IQA within 1e-5, and the image processor's
+    ``pixel_values`` bitwise the CPU's."""
+    from torchmetrics_tpu_torch.functional.multimodal import clip_image_quality_assessment, clip_score
+    from torchmetrics_tpu_torch.functional.multimodal.clip_score import _get_clip_model_and_processor
+
+    g = torch.Generator().manual_seed(4)
+    images = torch.randint(0, 256, (3, 3, 61, 47), generator=g, dtype=torch.uint8)
+    path = hf_tiny["openai/clip-vit-large-patch14"]
+    got = [clip_score(images.to(d), ["a cat", "the dog runs", "blue sky"], path, device=d) for d in (card, "cpu")]
+    torch.testing.assert_close(got[0].cpu(), got[1], rtol=0, atol=1e-4)
+    pixels = [_get_clip_model_and_processor(path, d)[1].image_processor(list(images.to(d))) for d in (card, "cpu")]
+    assert torch.equal(pixels[0].cpu(), pixels[1])
+    prompts = ("quality", "brightness", ("a good photo", "a bad photo"))
+    iqa = [clip_image_quality_assessment(images.to(d), hf_tiny["openai/clip-vit-base-patch32"], 255.0, prompts,
+                                         device=d) for d in (card, "cpu")]
+    for key in iqa[1]:
+        torch.testing.assert_close(iqa[0][key].cpu(), iqa[1][key], rtol=0, atol=1e-5)
+
+
+def test_model_based_text_products_reach_no_tf32_or_cudnn_kernel_and_launch_no_custom_kernel(card, hf_tiny):
+    """With both TF32 flags on, the encoders' products multiply in float64 (no TF32
+    kernel, no cuDNN, nothing scaled-dot-product), the flags stay as the caller set them,
+    the values equal the CPU's, and no K1-K5 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmetrics_tpu_torch.functional.multimodal import clip_score
+    from torchmetrics_tpu_torch.functional.text import bert_score
+
+    images = torch.randint(0, 256, (2, 3, 40, 40), generator=torch.Generator().manual_seed(5), dtype=torch.uint8)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (cudnn.allow_tf32, matmul.allow_tf32)
+    kernels.reset_launch_counts()
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, True
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            text = bert_score(*TEXT_PAIRS, model_name_or_path=hf_tiny["roberta-large"], device=card)
+            clip = clip_score(images.to(card), ["a cat", "a dog"], hf_tiny["openai/clip-vit-large-patch14"],
+                              device=card)
+            torch.cuda.synchronize()
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (True, True)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = before
+    names = [e.key.lower() for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not [n for n in names if "tf32" in n or "cudnn" in n or "flash" in n or "fmha" in n
+                          or "efficient_attention" in n], names
+    assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
+    want_text = bert_score(*TEXT_PAIRS, model_name_or_path=hf_tiny["roberta-large"], device="cpu")
+    torch.testing.assert_close(text["f1"].cpu(), want_text["f1"], rtol=0, atol=1e-5)
+    want_clip = clip_score(images, ["a cat", "a dog"], hf_tiny["openai/clip-vit-large-patch14"], device="cpu")
+    torch.testing.assert_close(clip.cpu(), want_clip, rtol=0, atol=1e-4)

@@ -236,12 +236,19 @@ def test_the_conversion_cli(tmp_path, capsys):
     assert "MANIFEST.json" in capsys.readouterr().out
     assert (tmp_path / "out" / "graph.json").exists()
     # the weight converters read their checkpoint (tests/test_torch_inception.py and
-    # test_torch_lpips.py convert real files); hf-flax waits for the text and multimodal item
+    # test_torch_lpips.py convert real files); hf-flax converts a tiny local snapshot
     for argv in (["inception", str(tmp_path / "x.pth")], ["lpips-backbone", str(tmp_path / "x.pth"), "--net", "vgg"]):
         with pytest.raises(FileNotFoundError):
             cli.main(argv)
-    with pytest.raises(NotImplementedError, match="text and multimodal item of ROADMAP Queue 1"):
-        cli.main(["hf-flax", "m", "-o", "o"])
+    config = dict(chip_smoke.HF_CONFIGS["google/bert_uncased_L-2_H-128_A-2"], vocab_size=400, hidden_size=16,
+                  num_attention_heads=2, intermediate_size=24, max_position_embeddings=32)
+    src = chip_smoke.write_hf_snapshot(str(tmp_path / "bert"), config, seed=0, words=["hello", "world"])
+    assert cli.main(["hf-flax", src, "-o", str(tmp_path / "flax"), "--model-class", "FlaxBertForMaskedLM"]) == 0
+    manifest = json.loads((tmp_path / "flax" / "MANIFEST.json").read_text())
+    assert manifest["flax_model.msgpack"]["kind"] == "hf-flax"
+    assert (tmp_path / "flax" / "vocab.txt").read_text() == (tmp_path / "bert" / "vocab.txt").read_text()
+    with pytest.raises(OSError, match="no network access"):
+        cli.main(["hf-flax", "m", "-o", str(tmp_path / "o")])
     with pytest.raises(SystemExit):
         cli.main(["no-such-command"])
 

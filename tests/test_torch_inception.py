@@ -427,7 +427,20 @@ def test_the_cli_converts_inception_and_a_backbone_and_hf_flax_still_raises(tmp_
     assert cli.main(["lpips-backbone", str(tmp_path / "alexnet-owt-7be5be79.pth"), "--net", "alex", "-o", str(out)]) == 0
     assert json.loads((tmp_path / "MANIFEST.json").read_text())["alex.npz"]["kind"] == "lpips-backbone-alex"
     assert set(load_lpips_backbone_params("alex", str(out))) == {f"features.{i}" for i in (0, 3, 6, 8, 10)}
-    with pytest.raises(NotImplementedError, match="BERTScore, InfoLM, CLIP score, CLIP-IQA"):
-        cli.main(["hf-flax", "m", "-o", str(tmp_path / "o")])
+    # hf-flax converts now (the test keeps its name): a tiny CLIP snapshot to flax's
+    # msgpack, which the port reads back to the same tensors
+    import chip_smoke
+    from torchmetrics_tpu_torch.utils.hf.snapshot import load_state_dict
+
+    config = json.loads(json.dumps(chip_smoke.HF_CONFIGS["openai/clip-vit-base-patch32"]))
+    config["text_config"].update(vocab_size=600, hidden_size=16, num_hidden_layers=1, num_attention_heads=2,
+                                 intermediate_size=24)
+    config["vision_config"].update(hidden_size=16, num_hidden_layers=1, num_attention_heads=2, intermediate_size=24,
+                                   image_size=32, patch_size=16)
+    config["projection_dim"] = 8
+    src = chip_smoke.write_hf_snapshot(str(tmp_path / "clip"), config, seed=1, words=["a", "photo"])
+    assert cli.main(["hf-flax", src, "-o", str(tmp_path / "o")]) == 0
+    got, want = load_state_dict(str(tmp_path / "o")), load_state_dict(src)
+    assert sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
     with pytest.raises(ValueError, match="is not a converted inception checkpoint"):
         tinc.load_torch_fidelity_weights(str(out))

@@ -190,9 +190,15 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         " torchmetrics_tpu_torch.functional.image.perceptual_path_length, torchmetrics_tpu_torch.image.lpip,"
         " torchmetrics_tpu_torch.image._inception_net, torchmetrics_tpu_torch.image.fid,"
         " torchmetrics_tpu_torch.image.inception, torchmetrics_tpu_torch.image.kid,"
-        " torchmetrics_tpu_torch.image.mifid, torchmetrics_tpu_torch.image.perceptual_path_length;"
+        " torchmetrics_tpu_torch.image.mifid, torchmetrics_tpu_torch.image.perceptual_path_length,"
+        " torchmetrics_tpu_torch.text.bert, torchmetrics_tpu_torch.text.infolm, torchmetrics_tpu_torch.multimodal,"
+        " torchmetrics_tpu_torch.functional.multimodal, torchmetrics_tpu_torch.utils.hf.snapshot,"
+        " torchmetrics_tpu_torch.utils.hf.tokenizer, torchmetrics_tpu_torch.utils.hf.wordpiece,"
+        " torchmetrics_tpu_torch.utils.hf.bpe, torchmetrics_tpu_torch.utils.hf.encoders,"
+        " torchmetrics_tpu_torch.utils.hf.clip, torchmetrics_tpu_torch.utils.hf.image_processor;"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'flax' or m.startswith('flax.')"
+        " or m.split('.')[0] in ('transformers', 'tokenizers', 'safetensors', 'msgpack', 'regex', 'PIL')"
         " or m == 'torchmetrics_tpu' or m.startswith('torchmetrics_tpu.'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

@@ -360,13 +360,14 @@ def test_classes_keep_jax_attributes(cls):
 
 
 def test_the_all_lists_equal_jax_less_the_model_based_metrics():
+    """Since the model-based metrics are ported, the lists equal JAX's (the name is kept
+    from the slice that still left BERTScore and InfoLM out)."""
     import torchmetrics_tpu as jtm
     import torchmetrics_tpu_torch as ttm
     import torchmetrics_tpu_torch.functional as tfunctional
 
-    model_based = {"BERTScore", "InfoLM", "bert_score", "infolm"}
-    assert tt.__all__ == [n for n in jt.__all__ if n not in model_based]
-    assert tf.__all__ == [n for n in jf.__all__ if n not in model_based]
+    assert tt.__all__ == jt.__all__
+    assert tf.__all__ == jf.__all__
     assert set(tt.__all__) <= set(ttm.__all__) and set(tt.__all__) <= set(jtm.__all__)
     assert set(tf.__all__) <= set(tfunctional.__all__) and "text" in tfunctional.__all__
     for name in tt.__all__:
@@ -375,9 +376,17 @@ def test_the_all_lists_equal_jax_less_the_model_based_metrics():
 
 @pytest.mark.parametrize("module, name", [(tt, "BERTScore"), (tt, "InfoLM"), (tf, "bert_score"), (tf, "infolm")])
 def test_the_model_based_names_raise_naming_the_roadmap_item(module, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        getattr(module, name)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        exec(f"from {module.__name__} import {name}", {})
+    """The model-based names resolve to the port's own class or function, by attribute
+    and by import (they raised ``NotImplementedError`` until they were ported; the test
+    keeps its name); an unknown name is still an ``AttributeError``."""
+    import importlib
+
+    owners = {"BERTScore": "text.bert", "InfoLM": "text.infolm", "bert_score": "functional.text.bert",
+              "infolm": "functional.text.infolm"}
+    got = getattr(module, name)
+    assert got is getattr(importlib.import_module(f"torchmetrics_tpu_torch.{owners[name]}"), name)
+    scope = {}
+    exec(f"from {module.__name__} import {name}", scope)
+    assert scope[name] is got
     with pytest.raises(AttributeError):
         getattr(module, "NoSuchMetric")

@@ -25,8 +25,10 @@ pass; the wrappers (bootstrap, classwise, min/max, multioutput, multitask, runni
 input transformers, the tracker and feature sharing); the clustering scores (extrinsic
 and intrinsic), the nominal association statistics, the segmentation scores and the
 pairwise distances (``functional.pairwise``); the text domain's string and token
-metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity; not
-yet BERTScore and InfoLM); the audio domain (SNR, SI-SNR, C-SI-SNR, SDR, SI-SDR, SA-SDR,
+metrics (error rates, BLEU, SacreBLEU, chrF, TER, EED, ROUGE, SQuAD, perplexity) and its
+model-based BERTScore and InfoLM; the multimodal CLIPScore and CLIP-IQA, on plain-torch
+BERT, RoBERTa and CLIP encoders with their tokenizers and a local snapshot reader
+(``utils/hf``); the audio domain (SNR, SI-SNR, C-SI-SNR, SDR, SI-SDR, SA-SDR,
 PIT, native STOI/ESTOI and SRMR, the gated PESQ, and DNSMOS on the port's ONNX executor,
 ``convert.onnx_torch``); the rest of the image domain (SAM, ERGAS, SCC, VIF, RASE,
 D-lambda, D-s, QNR, image gradients, and the model-based LPIPS, FID, IS, KID, MiFID and
@@ -52,6 +54,8 @@ from torchmetrics_tpu_torch.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.image import __all__ as _image_all
+from torchmetrics_tpu_torch.multimodal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.regression import *  # noqa: F401,F403
@@ -77,6 +81,6 @@ __version__ = "0.1.0.dev0"
 __all__ = [
     "CompositionalMetric", "MaskedBuffer", "Metric", "MetricCollection", "functional", "obs", "robust", *_classification_all,
     *_image_all, *_aggregation_all, *_regression_all, *_retrieval_all, *_clustering_all, *_nominal_all,
-    *_segmentation_all, *_text_all, *_audio_all, *_detection_all, "BootStrapper", "ClasswiseWrapper",
+    *_segmentation_all, *_text_all, *_audio_all, *_detection_all, *_multimodal_all, "BootStrapper", "ClasswiseWrapper",
     "MetricTracker", "MinMaxMetric", "MultioutputWrapper", "MultitaskWrapper", "Running",
 ]

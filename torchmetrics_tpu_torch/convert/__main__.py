@@ -1,8 +1,7 @@
 """CLI for the checkpoint conversion kit — see the package docstring.
 
-The JAX package's subcommands and flags. ``onnx-flax``, ``inception`` and
-``lpips-backbone`` write the formats both packages read; ``hf-flax`` raises as its
-function does until the text and multimodal model-based metrics are ported.
+The JAX package's subcommands and flags. ``onnx-flax``, ``inception``,
+``lpips-backbone`` and ``hf-flax`` write the formats both packages read.
 
 Examples::
 
@@ -10,6 +9,9 @@ Examples::
         -o weights/inception.npz
     python -m torchmetrics_tpu_torch.convert lpips-backbone vgg16-397923af.pth --net vgg -o weights/vgg.npz
     python -m torchmetrics_tpu_torch.convert onnx-flax DNSMOS/model_v8.onnx -o weights/dnsmos/model_v8
+    python -m torchmetrics_tpu_torch.convert hf-flax /data/hf/roberta-large -o weights/roberta-large
+    python -m torchmetrics_tpu_torch.convert hf-flax /data/hf/clip-vit-base-patch16 \
+        --model-class FlaxCLIPModel -o weights/clip-vit-base-patch16
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def main(argv=None) -> int:
     p_lpips.add_argument("-o", "--out", default=None, help="output npz path (default {net}.npz)")
 
     p_hf = sub.add_parser("hf-flax", help="local HF snapshot (torch weights) -> flax directory")
-    p_hf.add_argument("model_path", help="local HF model directory or cached name")
+    p_hf.add_argument("model_path", help="local HF model directory")
     p_hf.add_argument("-o", "--out", required=True, help="output directory")
     p_hf.add_argument(
         "--model-class",

@@ -6,6 +6,7 @@ from torchmetrics_tpu_torch.functional import (
     clustering,
     detection,
     image,
+    multimodal,
     nominal,
     pairwise,
     regression,
@@ -23,6 +24,8 @@ from torchmetrics_tpu_torch.functional.detection import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.detection import __all__ as _detection_all
 from torchmetrics_tpu_torch.functional.image import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.image import __all__ as _image_all
+from torchmetrics_tpu_torch.functional.multimodal import *  # noqa: F401,F403
+from torchmetrics_tpu_torch.functional.multimodal import __all__ as _multimodal_all
 from torchmetrics_tpu_torch.functional.nominal import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.nominal import __all__ as _nominal_all
 from torchmetrics_tpu_torch.functional.pairwise import *  # noqa: F401,F403
@@ -37,7 +40,7 @@ from torchmetrics_tpu_torch.functional.text import *  # noqa: F401,F403
 from torchmetrics_tpu_torch.functional.text import __all__ as _text_all
 
 __all__ = [
-    "audio", "classification", "clustering", "detection", "image", "nominal", "pairwise", "regression", "retrieval",
+    "audio", "classification", "clustering", "detection", "image", "multimodal", "nominal", "pairwise", "regression", "retrieval",
     "segmentation", "text", *_audio_all, *_classification_all, *_clustering_all, *_detection_all, *_image_all,
-    *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_segmentation_all, *_text_all,
+    *_multimodal_all, *_nominal_all, *_pairwise_all, *_regression_all, *_retrieval_all, *_segmentation_all, *_text_all,
 ]

@@ -1,10 +1,11 @@
 """Functional text metrics.
 
-Counterpart of ``torchmetrics_tpu/functional/text/__init__.py``, less the two
-model-based metrics: ``bert_score`` and ``infolm`` load a language model and are not
-ported yet (ROADMAP Queue 1, the model-based item); asking for either raises.
+Counterpart of ``torchmetrics_tpu/functional/text/__init__.py``. The model-based
+``bert_score`` and ``infolm`` run the port's encoders (``utils/hf``) on a local snapshot.
 """
 
+from torchmetrics_tpu_torch.functional.text.bert import bert_score
+from torchmetrics_tpu_torch.functional.text.infolm import infolm
 from torchmetrics_tpu_torch.functional.text.bleu import bleu_score
 from torchmetrics_tpu_torch.functional.text.cer import char_error_rate
 from torchmetrics_tpu_torch.functional.text.chrf import chrf_score
@@ -20,25 +21,9 @@ from torchmetrics_tpu_torch.functional.text.wer import word_error_rate
 from torchmetrics_tpu_torch.functional.text.wil import word_information_lost
 from torchmetrics_tpu_torch.functional.text.wip import word_information_preserved
 
-# the JAX package's model-based text metrics, which the port does not have yet
-_MODEL_BASED = ("bert_score", "infolm", "BERTScore", "InfoLM")
-
-
-def _model_based_missing(module: str, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"`{module}.{name}` is a model-based text metric (it loads a language model) and is not ported yet;"
-        " it comes with the model-based slice of ROADMAP Queue 1 (BERTScore and InfoLM beside multimodal's"
-        " CLIP score and CLIP-IQA)."
-    )
-
-
-def __getattr__(name: str):
-    if name in _MODEL_BASED:
-        raise _model_based_missing(__name__, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
+    "bert_score",
+    "infolm",
     "bleu_score",
     "char_error_rate",
     "chrf_score",

@@ -59,14 +59,8 @@ class _SacreBLEUTokenizer:
         (re.compile(r"([0-9])(-)"), r"\1 \2 "),
     )
 
-    if _REGEX_AVAILABLE:
-        import regex
-
-        _INT_REGEX = (
-            (regex.compile(r"(\P{N})(\p{P})"), r"\1 \2 "),
-            (regex.compile(r"(\p{P})(\P{N})"), r" \1 \2"),
-            (regex.compile(r"(\p{S})"), r" \1 "),
-        )
+    # compiled at the first ``intl`` call: importing the port never imports ``regex``
+    _INT_REGEX: ClassVar[tuple] = ()
 
     _TOKENIZE_FN: ClassVar[dict] = {
         "none": "_tokenize_base",
@@ -143,6 +137,14 @@ class _SacreBLEUTokenizer:
             raise ModuleNotFoundError(
                 "The `intl` tokenizer requires that the `regex` package is installed."
                 " Use `pip install regex`."
+            )
+        if not cls._INT_REGEX:
+            import regex
+
+            cls._INT_REGEX = (
+                (regex.compile(r"(\P{N})(\p{P})"), r"\1 \2 "),
+                (regex.compile(r"(\p{P})(\P{N})"), r" \1 \2"),
+                (regex.compile(r"(\p{S})"), r" \1 "),
             )
         for _re, repl in cls._INT_REGEX:
             line = _re.sub(repl, line)

@@ -1,14 +1,14 @@
 """Text metrics (stateful modules).
 
-Counterpart of ``torchmetrics_tpu/text/__init__.py``, less the two model-based
-metrics: ``BERTScore`` and ``InfoLM`` load a language model and are not ported yet
-(ROADMAP Queue 1, the model-based item); asking for either raises.
+Counterpart of ``torchmetrics_tpu/text/__init__.py``. The model-based ``BERTScore``
+and ``InfoLM`` run the port's encoders (``utils/hf``) on a local snapshot.
 """
 
-from torchmetrics_tpu_torch.functional.text import _MODEL_BASED, _model_based_missing
+from torchmetrics_tpu_torch.text.bert import BERTScore
 from torchmetrics_tpu_torch.text.bleu import BLEUScore, SacreBLEUScore
 from torchmetrics_tpu_torch.text.chrf import CHRFScore
 from torchmetrics_tpu_torch.text.eed import ExtendedEditDistance
+from torchmetrics_tpu_torch.text.infolm import InfoLM
 from torchmetrics_tpu_torch.text.error_rates import (
     CharErrorRate,
     EditDistance,
@@ -23,14 +23,10 @@ from torchmetrics_tpu_torch.text.squad import SQuAD
 from torchmetrics_tpu_torch.text.ter import TranslationEditRate
 
 
-def __getattr__(name: str):
-    if name in _MODEL_BASED:
-        raise _model_based_missing(__name__, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
 __all__ = [
+    "BERTScore",
     "BLEUScore",
+    "InfoLM",
     "CharErrorRate",
     "CHRFScore",
     "EditDistance",
